@@ -1,0 +1,16 @@
+"""brpc_tpu_torch — the PyTorch/CUDA port of brpc_tpu.
+
+A second package beside brpc_tpu, which stays the reference. It imports
+torch and numpy, never jax, ml_dtypes, protobuf or any brpc_tpu module.
+Module paths and names follow the reference's, so each counterpart is easy
+to find:
+
+* ``tensor`` — the flagship model's single-device forward;
+* ``rpc`` — the tensor lane: the device handshake, the block pool, the
+  TensorStore service, and a small server and channel;
+* ``entry`` — ``entry(device=None)``, the counterpart of
+  ``__graft_entry__.entry``.
+
+Entry points run on the card unless the caller passes ``device="cpu"``;
+without CUDA a request for the card raises.
+"""

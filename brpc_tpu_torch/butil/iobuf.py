@@ -1,0 +1,160 @@
+"""IOBuf — a chain of blocks viewed through (block, offset, length) refs.
+
+Port of the parts of brpc_tpu/butil/iobuf.py that the tensor lane uses.
+Blocks are host bytes, or DEVICE blocks that hold a ``torch.Tensor``
+(the counterpart of ``Block.device_block``): a tensor rides the chain
+untouched and is copied to the host once, when a wire boundary reads its
+bytes. Left out: the thread-local block cache, user blocks with deleters
+and the read-arena seam.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Iterable, Union
+
+import torch
+
+
+class Block:
+    """A contiguous chunk: host bytes, or a tensor (``kind == DEVICE``)."""
+
+    __slots__ = ("data", "size", "kind", "device_array")
+
+    HOST = 0
+    DEVICE = 2
+
+    def __init__(self, data: bytes):
+        self.data = data
+        self.size = len(data)
+        self.kind = Block.HOST
+        self.device_array = None
+
+    @classmethod
+    def device_block(cls, tensor) -> "Block":
+        """Wrap a tensor (on the card or the host). Zero-copy until a wire
+        boundary reads its bytes."""
+        b = cls.__new__(cls)
+        b.data = None
+        b.size = tensor.numel() * tensor.element_size()
+        b.kind = Block.DEVICE
+        b.device_array = tensor
+        return b
+
+    def materialize(self):
+        """Host view of the block's bytes. A DEVICE block costs one
+        device-to-host copy (none for a contiguous host tensor), cached."""
+        if self.data is None:
+            t = self.device_array.detach().contiguous().cpu()
+            self.data = memoryview(t.reshape(-1).view(torch.uint8).numpy())
+        return self.data
+
+
+class BlockRef:
+    """View of [offset, offset+length) inside one Block."""
+
+    __slots__ = ("block", "offset", "length")
+
+    def __init__(self, block: Block, offset: int, length: int):
+        self.block = block
+        self.offset = offset
+        self.length = length
+
+    def view(self) -> memoryview:
+        data = self.block.materialize()
+        return memoryview(data)[self.offset: self.offset + self.length]
+
+
+class IOBuf:
+    """Chain of BlockRefs. Structural ops move refs, not bytes."""
+
+    __slots__ = ("_refs", "_length")
+
+    def __init__(self, data=None):
+        self._refs: "deque[BlockRef]" = deque()
+        self._length = 0
+        if data is not None:
+            self.append(data)
+
+    def __len__(self) -> int:
+        return self._length
+
+    def append(self, data: Union[bytes, bytearray, memoryview, str, "IOBuf"]):
+        """Append bytes (a ``bytes`` object is kept as is, other buffers
+        are copied once) or share another IOBuf's blocks."""
+        if isinstance(data, IOBuf):
+            self._refs.extend(
+                BlockRef(r.block, r.offset, r.length) for r in data._refs)
+            self._length += data._length
+            return
+        if isinstance(data, str):
+            data = data.encode()
+        elif not isinstance(data, bytes):
+            data = bytes(data)
+        if data:
+            b = Block(data)
+            self._append_ref(BlockRef(b, 0, b.size))
+
+    def append_device_array(self, tensor):
+        """Zero-copy append of a tensor."""
+        b = Block.device_block(tensor)
+        self._append_ref(BlockRef(b, 0, b.size))
+
+    def _append_ref(self, ref: BlockRef):
+        if ref.length:
+            self._refs.append(ref)
+            self._length += ref.length
+
+    def cut(self, n: int) -> "IOBuf":
+        """Move the first n bytes into a new IOBuf without copying."""
+        out = IOBuf()
+        remain = min(n, self._length)
+        while remain > 0:
+            r = self._refs[0]
+            if r.length <= remain:
+                out._append_ref(self._refs.popleft())
+                self._length -= r.length
+                remain -= r.length
+            else:
+                out._append_ref(BlockRef(r.block, r.offset, remain))
+                r.offset += remain
+                r.length -= remain
+                self._length -= remain
+                remain = 0
+        return out
+
+    def cutn_bytes(self, n: int) -> bytearray:
+        """Copy out and remove the first n bytes. A bytearray, so a tensor
+        can be laid over it (``torch.frombuffer``) without another copy."""
+        return self.cut(n).copy_to_bytes()
+
+    def pop_front(self, n: int) -> int:
+        n = min(n, self._length)
+        self.cut(n)
+        return n
+
+    def copy_to_bytes(self, n: int = None, pos: int = 0) -> bytearray:
+        """Copy n bytes starting at pos (default: to the end), leaving the
+        chain as it is."""
+        if n is None:
+            n = self._length - pos
+        n = max(0, min(n, self._length - pos))
+        out = bytearray(n)
+        wrote, skip = 0, pos
+        for r in self._refs:
+            if wrote >= n:
+                break
+            if skip >= r.length:
+                skip -= r.length
+                continue
+            take = min(r.length - skip, n - wrote)
+            out[wrote: wrote + take] = r.view()[skip: skip + take]
+            wrote += take
+            skip = 0
+        return out
+
+    def to_bytes(self) -> bytes:
+        return bytes(self.copy_to_bytes())
+
+    def iter_views(self) -> Iterable[memoryview]:
+        for r in self._refs:
+            yield r.view()

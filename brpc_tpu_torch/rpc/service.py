@@ -1,0 +1,49 @@
+"""Service & method registry — how user code exposes RPC methods.
+
+Port of brpc_tpu/rpc/service.py: a Service subclass declares methods with
+``@rpc_method(Request, Response)`` (message classes of
+``brpc_tpu_torch.rpc.proto.wire``), keeping brpc's CallMethod signature:
+
+    @rpc_method(TensorPushRequest, TensorPushResponse)
+    def Push(self, controller, request, response, done):
+        ...
+        done()
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Type
+
+
+class MethodInfo(NamedTuple):
+    name: str
+    request_class: Type
+    response_class: Type
+    handler: Callable  # handler(self, cntl, req, res, done)
+
+
+def rpc_method(request_class: Type, response_class: Type):
+    """Mark a Service method as an RPC method."""
+
+    def deco(fn):
+        fn.__rpc_method__ = (request_class, response_class)
+        return fn
+
+    return deco
+
+
+class Service:
+    """Base class; service name defaults to the class name."""
+
+    @classmethod
+    def service_name(cls) -> str:
+        return getattr(cls, "SERVICE_NAME", cls.__name__)
+
+    @classmethod
+    def methods(cls) -> Dict[str, MethodInfo]:
+        out = {}
+        for attr in dir(cls):
+            fn = getattr(cls, attr, None)
+            info = getattr(fn, "__rpc_method__", None)
+            if info is not None:
+                out[attr] = MethodInfo(attr, info[0], info[1], fn)
+        return out

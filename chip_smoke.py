@@ -1,0 +1,324 @@
+#!/usr/bin/env python3
+"""Smoke run of brpc_tpu_torch (the PyTorch/CUDA port) on one NVIDIA card.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+It drives the port's main path through the entry points a user calls and
+fails (non-zero exit, no result line) when any phase fails, when CUDA is
+unavailable, or when the port is not beside it:
+
+1. card   — the card's name and power limit, from nvidia-smi; every time,
+            rate and size printed below carries them;
+2. serve  — a TensorStore server on 127.0.0.1:0. (a) A device channel:
+            handshake ESTABLISHED, same process, so the in-process lane
+            hands the pushed tensors back as the same storage. (b) A plain
+            channel: the wire lane, float32/bfloat16/int32 at 8 KB-8 MB,
+            pulled onto the card; byte-identical, the <= 2 MB ones through
+            DeviceBlockPool, and none aliasing a block refilled since;
+3. forward — the flagship forward at the widest configuration the
+            reference runs (its bench's "big" model, bf16, 4 x 512 tokens),
+            random weights from a seed, on the token batch pulled in 2b;
+4. card against CPU — the same weights at full width, one layer, fp32,
+            on the card and on the CPU;
+5. kernels — the JAX package has no Pallas kernel, so none is ported.
+
+The last line is the result: {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from brpc_tpu_torch.rpc import Channel, Server, ServerOptions
+from brpc_tpu_torch.rpc import device_transport as dt
+from brpc_tpu_torch.rpc.tensor_service import (
+    TensorClient,
+    TensorStoreService,
+    make_device_channel,
+)
+from brpc_tpu_torch.tensor import ModelConfig, forward_local, init_params
+
+# brpc_tpu/bench.py's "big" model: the widest configuration the repo runs
+BIG = ModelConfig(vocab=32768, d_model=2048, n_heads=16, d_head=128,
+                  d_ff=8192, n_layers=8, n_experts=2,
+                  expert_capacity_factor=1.25, dtype="bfloat16")
+BATCH, SEQ = 4, 512
+ROUNDS = 5  # push/pull rounds per tensor on the wire lane
+FWD_WARMUP, FWD_RUNS = 2, 7
+# Phase 4: max |logit| difference, card vs CPU, fp32 without TF32. The two
+# sides sum in different orders; fp32 keeps ~7 digits on O(1) logits. The
+# difference on an NVIDIA H100 80GB HBM3 (700 W) was 1.3e-5 with max
+# |logit| 5.2; 1e-4 leaves a 7x margin.
+CARD_VS_CPU_ATOL = 1e-4
+
+
+# NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
+H100_BF16_FLOPS = 989e12
+H100_HBM_BYTES_PER_S = 3.35e12
+
+
+def forward_flops(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """FLOPs of forward_local by part, from the shapes (2 per multiply-add):
+    the dense one-hot dispatch/combine einsums run over every token, expert
+    and capacity slot, as in the reference."""
+    n = batch * seq
+    slots = cfg.n_experts * max(1, int(cfg.expert_capacity_factor * n
+                                       / cfg.n_experts))
+    per_layer = {
+        "qkv+o": 2 * n * cfg.d_model * cfg.d_qkv * 4,
+        "attention": 2 * 2 * batch * cfg.n_heads * seq * seq * cfg.d_head,
+        "router": 2 * n * cfg.d_model * cfg.n_experts,
+        "dispatch+combine": 2 * 2 * n * slots * cfg.d_model,
+        "experts": 2 * 2 * slots * cfg.d_model * cfg.d_ff,
+    }
+    parts = {k: v * cfg.n_layers for k, v in per_layer.items()}
+    parts["unembed"] = 2 * n * cfg.d_model * cfg.vocab
+    return parts
+
+
+def card_name_and_limit() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def u8(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def check(cond: bool, what: str):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def phase_inproc(endpoint: str, tag: str, gen):
+    dev = torch.device("cuda")
+    ch = make_device_channel(endpoint)
+    try:
+        client = TensorClient(ch)
+        tokens = torch.randint(0, BIG.vocab, (BATCH, SEQ), dtype=torch.int32,
+                               device=dev, generator=gen)
+        act = torch.randn((BATCH, SEQ, BIG.d_model), dtype=torch.bfloat16,
+                          device=dev, generator=gen)
+        for name, x in (("tokens", tokens), ("act", act)):
+            rtts = []
+            for _ in range(ROUNDS):
+                t0 = time.perf_counter()
+                cntl, resp = client.push(name, [x])
+                check(not cntl.failed() and resp.ok,
+                      f"inproc push {name}: {cntl.error_text}")
+                cntl, got = client.pull(name)
+                rtts.append(time.perf_counter() - t0)
+                check(not cntl.failed(), f"inproc pull {name}: {cntl.error_text}")
+                spec = cntl._response_rpc_meta.tensors[0].sharding_spec
+                check(spec.startswith("inproc:"), f"{name} took lane {spec}")
+                check(got[0].data_ptr() == x.data_ptr(),
+                      f"{name}: in-process pull is not the same storage")
+            ep = cntl._current_sock.app_state
+            check(ep.state == dt.ESTABLISHED and ep.same_process,
+                  "device channel not ESTABLISHED in process")
+            nbytes = x.numel() * x.element_size()
+            print(f"serve/inproc {name} {x.dtype} {list(x.shape)} "
+                  f"{nbytes} B: same storage (data_ptr {x.data_ptr():#x}), "
+                  f"median push+pull {statistics.median(rtts) * 1e3:.3f} ms "
+                  f"{tag}")
+    finally:
+        ch.close()
+
+
+def phase_wire(endpoint: str, tag: str, gen):
+    """Returns the token batch as pulled onto the card."""
+    dev = torch.device("cuda")
+    ch = Channel()
+    check(ch.init(endpoint) == 0, "plain channel init")
+    pool = dt.default_block_pool(dev)
+    sizes = (("8KB", 8 << 10), ("64KB", 64 << 10), ("2MB", 2 << 20),
+             ("8MB", 8 << 20))
+    cases = []
+    for label, nbytes in sizes:
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            n = nbytes // dt.DTYPES[dt.dtype_name(dtype)][1]
+            if dtype == torch.int32 and nbytes == 8 << 10:
+                # the token batch the forward consumes
+                x = torch.randint(0, BIG.vocab, (BATCH, SEQ),
+                                  dtype=torch.int32, device=dev,
+                                  generator=gen)
+            elif dtype == torch.int32:
+                x = torch.randint(-(1 << 31), (1 << 31) - 1, (n,),
+                                  dtype=torch.int32, device=dev,
+                                  generator=gen)
+            else:
+                x = torch.randn((n,), dtype=dtype, device=dev, generator=gen)
+            cases.append((label, nbytes, dtype, x))
+    try:
+        client = TensorClient(ch)
+        kept = []  # round-0 pooled results, checked again after refills
+        acquired0 = pool.acquired
+        tokens = None
+        for label, nbytes, dtype, x in cases:
+            name = f"{label}-{dt.dtype_name(dtype)}"
+            rtts = []
+            for r in range(ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cntl, resp = client.push(name, [x])
+                check(not cntl.failed() and resp.ok,
+                      f"wire push {name}: {cntl.error_text}")
+                cntl, got = client.pull(name, device=dev)
+                torch.cuda.synchronize()
+                rtts.append(time.perf_counter() - t0)
+                check(not cntl.failed(), f"wire pull {name}: {cntl.error_text}")
+                spec = cntl._response_rpc_meta.tensors[0].sharding_spec
+                check(spec.startswith("wire::"), f"{name} took lane {spec}")
+                y = got[0]
+                check(y.device.type == dev.type and y.dtype == dtype and y.shape == x.shape,
+                      f"{name}: pulled {y.dtype} {tuple(y.shape)} on {y.device}")
+                check(torch.equal(u8(y), u8(x)), f"{name}: bytes differ")
+                check(y.data_ptr() != x.data_ptr(), f"{name}: wire result aliases the source")
+                if r == 0 and nbytes <= dt.DeviceBlockPool.SIZE_CLASSES[-1]:
+                    kept.append((name, x, y))
+            if label == "8KB" and dtype == torch.int32:
+                tokens = y
+            med = statistics.median(rtts)
+            print(f"serve/wire {name}: {nbytes} B byte-identical x{ROUNDS}, "
+                  f"median push+pull {med * 1e3:.3f} ms, "
+                  f"{2 * nbytes / med / 1e9:.3f} GB/s {tag}")
+        n_pooled = sum(1 for c in cases
+                       if c[1] <= dt.DeviceBlockPool.SIZE_CLASSES[-1])
+        took = pool.acquired - acquired0
+        check(took == n_pooled * ROUNDS,
+              f"pool handed out {took} blocks, expected {n_pooled * ROUNDS}")
+        check(pool.released == pool.acquired, "pool blocks not returned")
+        for name, x, y in kept:
+            check(torch.equal(u8(y), u8(x)),
+                  f"{name}: a pooled result changed after its block was refilled")
+        print(f"serve/wire pool: {took} landings through DeviceBlockPool "
+              f"(<= 2 MB payloads), {len(kept)} round-0 results unchanged "
+              f"after {ROUNDS - 1} refills of their blocks; 8 MB payloads "
+              f"went by plain .to(device) {tag}")
+        return tokens
+    finally:
+        ch.close()
+
+
+def phase_forward(tokens: torch.Tensor, tag: str):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(BIG, gen, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    logits = forward_local(params, tokens, BIG)
+    torch.cuda.synchronize()
+    check(logits.dtype == torch.float32
+          and tuple(logits.shape) == (BATCH, SEQ, BIG.vocab),
+          f"logits {logits.dtype} {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    for _ in range(FWD_WARMUP):
+        forward_local(params, tokens, BIG)
+    times = []
+    for _ in range(FWD_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward_local(params, tokens, BIG)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    parts = forward_flops(BIG, BATCH, SEQ)
+    flops = sum(parts.values())
+    # bytes: every weight read once, tokens in, logits out
+    nbytes = (sum(t.numel() * t.element_size() for t in _leaves(params))
+              + tokens.numel() * tokens.element_size()
+              + logits.numel() * logits.element_size())
+    bound_ops = flops / H100_BF16_FLOPS * 1e3
+    bound_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    print(f"forward work: {flops / 1e9:.1f} GFLOP ("
+          + ", ".join(f"{k} {v / 1e9:.1f}" for k, v in parts.items())
+          + f"), {nbytes / 1e9:.3f} GB moved at least; bound "
+          f"{max(bound_ops, bound_bytes):.3f} ms by "
+          f"{'operations' if bound_ops >= bound_bytes else 'bytes'} "
+          f"(989 TFLOP/s bf16, 3.35 TB/s); achieved "
+          f"{flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{max(bound_ops, bound_bytes) / ms:.1%} of the bound {tag}")
+    print(f"forward: {BIG} params={n_params} "
+          f"logits float32{list(logits.shape)} finite; median of {FWD_RUNS} "
+          f"(CUDA events) {ms:.3f} ms, {BATCH * SEQ / ms * 1e3:.1f} tokens/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"{tag}")
+    del params, logits
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield tree
+
+
+def _to(tree, dev):
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(x, dev) for x in tree))
+    return tree.to(dev)
+
+
+def phase_card_vs_cpu(tag: str):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(BIG, n_layers=1, dtype="float32")
+    gen = torch.Generator().manual_seed(1)
+    params = init_params(cfg, gen, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (1, 128), dtype=torch.int32,
+                           generator=gen)
+    want = forward_local(params, tokens, cfg)
+    got = forward_local(_to(params, "cuda"), tokens.cuda(), cfg).cpu()
+    err = float((got - want).abs().max())
+    print(f"card-vs-cpu: full widths, 1 layer, B1xT128, fp32 (no TF32): "
+          f"max |logit| diff {err:.3e} (tolerance {CARD_VS_CPU_ATOL:g}, "
+          f"max |logit| {float(want.abs().max()):.3f}) {tag}")
+    check(err <= CARD_VS_CPU_ATOL, f"card vs CPU error {err} > {CARD_VS_CPU_ATOL}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    card = card_name_and_limit()
+    tag = f"[{card}]"
+    print(card)  # as nvidia-smi gives it: name, power limit
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    srv = Server(ServerOptions())
+    check(srv.add_service(TensorStoreService()) == 0, "add_service")
+    check(srv.start("127.0.0.1:0") == 0, "server start")
+    try:
+        endpoint = str(srv.listen_endpoint)
+        phase_inproc(endpoint, tag, gen)
+        tokens = phase_wire(endpoint, tag, gen)
+    finally:
+        srv.stop()
+
+    phase_forward(tokens, tag)
+    phase_card_vs_cpu(tag)
+
+    print("kernels: none ported - brpc_tpu has no Pallas kernel "
+          "(no pallas_call in its sources); its device work is XLA-lowered "
+          "jnp/lax, which the port runs as torch ops")
+    print(json.dumps({"kernels": []}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
