@@ -2,8 +2,9 @@
 
 Port of brpc_tpu/rpc/tensor_service.py: a TensorStore service accepts
 pushed tensors and serves pulls; tensors ride the tpu_std attachment
-described by RpcMeta.tensors, zero-copy in process and as bytes across
-processes, via brpc_tpu_torch.rpc.device_transport.
+described by RpcMeta.tensors, via brpc_tpu_torch.rpc.device_transport:
+zero-copy in process, a shared-arena descriptor or a device-to-device
+pull on the same host, and bytes on the wire otherwise.
 
 Server-side handshake counterpart: the TDEV parser below answers the
 DeviceEndpoint.app_connect handshake on accepted connections, so both ends
@@ -76,6 +77,11 @@ def _process_handshake(msg: _HandshakeMsg):
 
     if msg.info.get("device_count", 0) > 0 and mine["device_count"] > 0:
         ep.state = dt.ESTABLISHED
+        if msg.info.get("xfer"):
+            try:
+                ep.resolve_xfer_addr(sock.fd().getsockname()[0])
+            except OSError:
+                pass
     else:
         ep.state = dt.FALLBACK_TCP
     sock.app_state = ep
@@ -104,7 +110,13 @@ class TensorStoreService(Service):
             cntl.set_failed(errors.EREQUEST, "no tensors in request")
             done()
             return
-        arrays, seq = receive_tensors(meta, cntl.request_attachment)
+        ep = (cntl._server_socket.app_state
+              if cntl._server_socket is not None else None)
+        # host tensors from the wire and shm lanes, as in the reference; an
+        # xfer push lands on the connection's device
+        arrays, seq = receive_tensors(
+            meta, cntl.request_attachment,
+            endpoint=ep if isinstance(ep, DeviceEndpoint) else None)
         with self._lock:
             self._store[request.name] = arrays
         if self._on_push is not None:
@@ -175,8 +187,8 @@ class TensorClient:
         return cntl, response
 
     def pull(self, name: str, timeout_ms: float = 10000, device=None):
-        """``device=None`` returns host tensors; a device lands the bytes
-        there through its DeviceBlockPool."""
+        """``device=None`` returns host tensors (the xfer lane: tensors on
+        the channel's device); a device lands the bytes there."""
         from brpc_tpu_torch.rpc.controller import Controller
 
         cntl = Controller()
@@ -191,8 +203,11 @@ class TensorClient:
         meta = getattr(cntl, "_response_rpc_meta", None)
         if meta is None:
             return cntl, None
-        arrays, seq = receive_tensors(meta, cntl.response_attachment,
-                                      device=device)
+        ep = (cntl._current_sock.app_state
+              if cntl._current_sock is not None else None)
+        arrays, seq = receive_tensors(
+            meta, cntl.response_attachment, device=device,
+            endpoint=ep if isinstance(ep, DeviceEndpoint) else None)
         if seq:
             # explicit ACK so the server frees its retained span/window
             ack_cntl = Controller()

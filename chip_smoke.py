@@ -2,6 +2,8 @@
 """Smoke run of brpc_tpu_torch (the PyTorch/CUDA port) on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``python3 chip_smoke.py --peer`` is the second process of phase 6; the
+script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -20,7 +22,20 @@ unavailable, or when the port is not beside it:
             random weights from a seed, on the token batch pulled in 2b;
 4. card against CPU — the same weights at full width, one layer, fp32,
             on the card and on the CPU;
-5. kernels — the JAX package has no Pallas kernel, so none is ported.
+5. kernels — the JAX package has no Pallas kernel, so none is ported;
+6. serve across processes — a TensorStore server on the card in a second
+            process (``--peer``). Float32/bfloat16/int32 at 8 KiB and 2 MiB,
+            the flagship's [4, 512, 2048] bfloat16 activations (8 MiB) and a
+            64 MiB bfloat16 tensor go there and back by three lanes: wire (a
+            plain channel), shm (a device channel: one copy into a
+            page-locked shared arena, a descriptor on the wire) and xfer
+            (device_transport_prefer_xfer set in both processes: CUDA IPC,
+            device to device). Each pull lands on the card byte-identical;
+            shm and xfer carry 0 attachment bytes; lane counters, retention,
+            window and arena spans return to rest on both sides; a write to
+            the producer's tensor after the ACK leaves the consumer's copy
+            as it was; neither process leaks card memory. The peer is
+            always stopped.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -28,6 +43,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import select
 import statistics
 import subprocess
 import sys
@@ -35,8 +52,12 @@ import time
 
 import torch
 
-from brpc_tpu_torch.rpc import Channel, Server, ServerOptions
+from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.rpc import Channel, Controller, Server, ServerOptions
+from brpc_tpu_torch.rpc import cuda_ipc_transfer
 from brpc_tpu_torch.rpc import device_transport as dt
+from brpc_tpu_torch.rpc.proto import wire
+from brpc_tpu_torch.rpc.service import Service, rpc_method
 from brpc_tpu_torch.rpc.tensor_service import (
     TensorClient,
     TensorStoreService,
@@ -288,6 +309,275 @@ def phase_card_vs_cpu(tag: str):
     check(err <= CARD_VS_CPU_ATOL, f"card vs CPU error {err} > {CARD_VS_CPU_ATOL}")
 
 
+# -- phase 6: serve across processes -----------------------------------------
+
+PREFER_XFER = "device_transport_prefer_xfer"
+XROUNDS = 7  # push + pull + ACK rounds per payload and lane (median)
+PEER_READY_S = 180
+LANE_PREFIX = {"wire": "wire::", "shm": "shm:", "xfer": "xfer|"}
+
+
+class SmokePeer(Service):
+    """The peer's side door for the checks: set the prefer-xfer flag,
+    overwrite a stored tensor in place, clear the store, and report the
+    state of the calling connection's endpoint, the lanes, the arena and
+    card memory (as JSON in the response attachment)."""
+
+    def __init__(self, store: TensorStoreService):
+        self.store = store
+
+    @rpc_method(wire.TensorPullRequest, wire.TensorAckResponse)
+    def Control(self, cntl, request, response, done):
+        cmd = json.loads(request.name)
+        if cmd["op"] == "flag":
+            check(flags.set_flag(PREFER_XFER, bool(cmd["on"])), "set flag")
+        elif cmd["op"] == "scribble":
+            for t in self.store.get(cmd["name"]):
+                u8(t).bitwise_not_()  # in place: stored tensors are contiguous
+        elif cmd["op"] == "reset":
+            with self.store._lock:
+                self.store._store.clear()
+        torch.cuda.synchronize()
+        ep = cntl._server_socket.app_state
+        arena = dt.default_send_arena()
+        server = dt._global_xfer_server()
+        state = {
+            "lanes": dt.lane_counters(),
+            "retained": ep.retained_count if ep is not None else 0,
+            "inflight": ep.inflight_bytes if ep is not None else 0,
+            "arena_free": arena.free_bytes(), "arena_size": arena.size,
+            "arena_pinned": arena.pinned,
+            "attached_pinned": {n: a.pinned
+                                for n, a in dt._attached_arenas.items()},
+            "published": server.published_count() if server else 0,
+            "memory_allocated": torch.cuda.memory_allocated(),
+        }
+        cntl.response_attachment.append(json.dumps(state).encode())
+        response.ok = True
+        done()
+
+
+def peer_main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke --peer: CUDA is not available", file=sys.stderr)
+        return 2
+    store = TensorStoreService()
+    srv = Server(ServerOptions())
+    check(srv.add_service(store) == 0, "peer add_service")
+    check(srv.add_service(SmokePeer(store)) == 0, "peer add_service")
+    check(srv.start("127.0.0.1:0") == 0, "peer server start")
+    print(f"peer ready {srv.listen_endpoint.port}", flush=True)
+    sys.stdin.readline()  # the parent closes stdin to stop us
+    srv.stop()
+    return 0
+
+
+def start_peer():
+    """The peer in a fresh interpreter (never a fork after CUDA started);
+    returns (process, port). Fails when it prints no ready line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--peer"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=here)
+    ready, _, _ = select.select([proc.stdout], [], [], PEER_READY_S)
+    line = proc.stdout.readline() if ready else ""
+    if not line.startswith("peer ready "):
+        stop_peer(proc)
+        raise RuntimeError(f"chip_smoke: the peer printed no ready line "
+                           f"({line!r}, exit code {proc.returncode})")
+    return proc, int(line.split()[2])
+
+
+def stop_peer(proc) -> int:
+    try:
+        proc.stdin.close()
+    except OSError:
+        pass
+    try:
+        return proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return -9
+
+
+def peer_control(ch, op: str, **kw) -> dict:
+    cntl = Controller()
+    cntl.timeout_ms = 60000
+    ch.call_method("SmokePeer.Control", cntl,
+                   wire.TensorPullRequest(name=json.dumps({"op": op, **kw})),
+                   wire.TensorAckResponse())
+    check(not cntl.failed(), f"peer control {op}: {cntl.error_text}")
+    return json.loads(cntl.response_attachment.to_bytes())
+
+
+def cross_payloads(gen):
+    dev = torch.device("cuda")
+    out = []
+    for label, nbytes in (("8KiB", 8 << 10), ("2MiB", 2 << 20)):
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            n = nbytes // dt.DTYPES[dt.dtype_name(dtype)][1]
+            if dtype == torch.int32:
+                x = torch.randint(-(1 << 31), (1 << 31) - 1, (n,),
+                                  dtype=dtype, device=dev, generator=gen)
+            else:
+                x = torch.randn((n,), dtype=dtype, device=dev, generator=gen)
+            out.append((f"{label}-{dt.dtype_name(dtype)}", x))
+    out.append(("8MiB-act", torch.randn((BATCH, SEQ, BIG.d_model),
+                                        dtype=torch.bfloat16, device=dev,
+                                        generator=gen)))
+    out.append(("64MiB-bfloat16", torch.randn((32 << 20,),
+                                              dtype=torch.bfloat16,
+                                              device=dev, generator=gen)))
+    return out
+
+
+def run_lane_payload(client, devch, lane: str, label: str, x, tag: str):
+    """XROUNDS timed push+pull+ACK rounds and the after-ACK write checks;
+    returns the median seconds."""
+    dev = torch.device("cuda")
+    name = f"{lane}-{label}"
+    nbytes = x.numel() * x.element_size()
+    arena = dt.default_send_arena()
+    free0 = arena.free_bytes()
+    times = []
+    for _ in range(XROUNDS):
+        torch.cuda.synchronize()
+        sent0 = dt.lane_counters()[lane]
+        t0 = time.perf_counter()
+        cntl, resp = client.push(name, [x])
+        check(not cntl.failed() and resp.ok,
+              f"{name} push: {cntl.error_text}")
+        pcntl, got = client.pull(name, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(not pcntl.failed() and got is not None,
+              f"{name} pull: {pcntl.error_text}")
+        check(dt.lane_counters()[lane] == sent0 + 1,
+              f"{name}: the push took another lane than {lane}")
+        spec = pcntl._response_rpc_meta.tensors[0].sharding_spec
+        check(spec.startswith(LANE_PREFIX[lane]),
+              f"{name}: the pull came back by {spec}")
+        if lane != "wire":
+            check(len(cntl.request_attachment) == 0
+                  and pcntl._response_rpc_meta.attachment_size == 0,
+                  f"{name}: payload bytes on the RPC wire")
+        y = got[0]
+        check(y.device.type == dev.type and y.dtype == x.dtype
+              and y.shape == x.shape,
+              f"{name}: pulled {y.dtype} {tuple(y.shape)} on {y.device}")
+        check(torch.equal(u8(y), u8(x)), f"{name}: bytes differ")
+    del got, y
+    # after the ACKs: a write by the producer leaves the consumer's copy
+    ref = x.clone()
+    cntl, resp = client.push(name, [x])
+    check(not cntl.failed() and resp.ok, f"{name} push: {cntl.error_text}")
+    u8(x).bitwise_not_()  # the client's tensor, after the push's ACK
+    pcntl, got = client.pull(name, device=dev)
+    check(not pcntl.failed(), f"{name} pull: {pcntl.error_text}")
+    x.copy_(ref)
+    y = got[0]
+    check(torch.equal(u8(y), u8(ref)),
+          f"{name}: the peer's copy changed with the producer's tensor")
+    peer_control(devch, "scribble", name=name)  # the peer's, after the ACK
+    torch.cuda.synchronize()
+    check(torch.equal(u8(y), u8(ref)),
+          f"{name}: the pulled copy changed with the peer's tensor")
+    del got, y, ref
+    check(arena.free_bytes() == free0, f"{name}: send arena spans not freed")
+    ep = devch._sock.app_state if devch._sock is not None else None
+    check(ep is None or (ep.retained_count == 0 and ep.inflight_bytes == 0),
+          f"{name}: client endpoint holds {ep.retained_count} sends, "
+          f"{ep.inflight_bytes} B")
+    server = dt._global_xfer_server()
+    check(server is None or server.published_count() == 0,
+          f"{name}: publications left on the client's transfer server")
+    state = peer_control(devch, "state")
+    check(state["retained"] == 0 and state["inflight"] == 0,
+          f"{name}: peer endpoint not at rest: {state}")
+    check(state["arena_free"] == state["arena_size"],
+          f"{name}: peer arena spans not freed: {state}")
+    check(state["published"] == 0, f"{name}: peer publications left")
+    med = statistics.median(times)
+    print(f"serve/x-proc/{lane} {label} {x.dtype} {list(x.shape)} {nbytes} B: "
+          f"byte-identical x{XROUNDS}, median push+pull+ACK "
+          f"{med * 1e3:.3f} ms, {2 * nbytes / med / 1e9:.3f} GB/s {tag}")
+    return med, state
+
+
+def phase_cross_process(tag: str, gen):
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    cuda_ipc_transfer.load_library()  # built once, before the peer needs it
+    flags.set_flag(PREFER_XFER, False)
+    proc, port = start_peer()
+    plain = devch = None
+    failed = True
+    try:
+        endpoint = f"127.0.0.1:{port}"
+        plain = Channel()
+        check(plain.init(endpoint) == 0, "plain channel init")
+        devch = make_device_channel(endpoint)
+        check(devch is not None, "device channel init")
+        payloads = cross_payloads(gen)
+        clients = {"wire": TensorClient(plain), "shm": TensorClient(devch),
+                   "xfer": TensorClient(devch)}
+        # warm every lane once (arena attach, IPC build and first mapping),
+        # then take the memory baselines
+        warm = torch.arange(1024, dtype=torch.float32, device=dev)
+        for lane, client in clients.items():
+            on = lane == "xfer"
+            flags.set_flag(PREFER_XFER, on)
+            peer_control(devch, "flag", on=on)
+            client.push("warm", [warm])
+            client.pull("warm", device=dev)
+        peer0 = peer_control(devch, "reset")["memory_allocated"]
+        torch.cuda.synchronize()
+        mine0 = torch.cuda.memory_allocated()
+        medians = {}
+        for lane, client in clients.items():
+            on = lane == "xfer"
+            flags.set_flag(PREFER_XFER, on)
+            peer_control(devch, "flag", on=on)
+            lanes0 = peer_control(devch, "state")["lanes"][lane]
+            for label, x in payloads:
+                medians[lane, label], state = run_lane_payload(
+                    client, devch, lane, label, x, tag)
+            check(state["lanes"][lane] - lanes0 == (XROUNDS + 1) * len(payloads),
+                  f"the peer answered pulls by another lane than {lane}")
+        state = peer_control(devch, "reset")
+        torch.cuda.synchronize()
+        mine1 = torch.cuda.memory_allocated()
+        check(mine1 == mine0, f"card memory leaked here: {mine0} -> {mine1} B")
+        check(state["memory_allocated"] == peer0,
+              f"card memory leaked in the peer: {peer0} -> "
+              f"{state['memory_allocated']} B")
+        arena = dt.default_send_arena()
+        pinned = {n: a.pinned for n, a in dt._attached_arenas.items()}
+        check(arena.pinned and all(pinned.values()),
+              "an arena on the shm lane is not page-locked")
+        big = "64MiB-bfloat16"
+        ratio = medians["wire", big] / medians["xfer", big]
+        print(f"serve/x-proc: card memory {mine0} B here and {peer0} B in "
+              f"the peer, the same after every lane; send arena "
+              f"{arena.name} ({arena.size} B) page-locked={arena.pinned}, "
+              f"peer arena page-locked={state['arena_pinned']}, attached "
+              f"here page-locked={pinned}; xfer is {ratio:.1f}x the wire "
+              f"lane's rate at 64 MiB; phase took "
+              f"{time.perf_counter() - t_start:.1f} s {tag}")
+        print("lanes " + json.dumps({
+            f"{lane}/{label}": round(m * 1e3, 3)
+            for (lane, label), m in medians.items()}))
+        failed = False
+    finally:
+        flags.set_flag(PREFER_XFER, False)
+        for ch in (plain, devch):
+            if ch is not None:
+                ch.close()
+        rc = stop_peer(proc)
+    check(failed or rc == 0, f"the peer exited with code {rc}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -309,6 +599,7 @@ def main() -> int:
 
     phase_forward(tokens, tag)
     phase_card_vs_cpu(tag)
+    phase_cross_process(tag, gen)
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "
@@ -321,4 +612,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(peer_main() if sys.argv[1:] == ["--peer"] else main())

@@ -5,9 +5,10 @@
 * ``pack_frame`` gives the reference's frame.
 * Live round trips in each direction on the CPU: a reference device
   channel against a port server (the reference stages its push in its
-  shared arena, so this drives the port's shm receive; the port answers
-  pulls on the wire), and a port device channel against a reference
-  server (wire push, shm pull, then the ACK that frees the span).
+  shared arena, so this drives the port's shm receive; the port stages
+  its pull answers in its own arena, which the reference attaches), and a
+  port device channel against a reference server (shm both ways, then the
+  ACKs that free the spans).
 * The port and chip_smoke.py import no jax, ml_dtypes, protobuf or
   brpc_tpu module.
 """
@@ -31,6 +32,7 @@ from brpc_tpu.rpc import tpu_std_protocol as ref_proto
 from brpc_tpu.rpc.proto import rpc_meta_pb2, tensor_service_pb2
 from brpc_tpu_torch import rpc
 from brpc_tpu_torch.butil.iobuf import IOBuf
+from brpc_tpu_torch.rpc import device_transport as port_dt
 from brpc_tpu_torch.rpc import tensor_service as ts
 from brpc_tpu_torch.rpc import tpu_std_protocol as proto
 from brpc_tpu_torch.rpc.proto import wire
@@ -183,6 +185,8 @@ def test_reference_client_against_port_server():
     srv.add_service(svc)
     assert srv.start("127.0.0.1:0") == 0
     ch = ref_ts.make_device_channel(str(srv.listen_endpoint))
+    arena = port_dt.default_send_arena()
+    free0 = arena.free_bytes()
     try:
         client = ref_ts.TensorClient(ch)
         for name, a in _payloads().items():
@@ -197,9 +201,13 @@ def test_reference_client_against_port_server():
             assert _raw(stored) == _raw(a)
             cntl, pulled = client.pull(name)
             assert not cntl.failed(), cntl.error_text
+            # the port stages a same-host pull in its send arena; the
+            # reference client attaches it by name
             assert cntl._response_rpc_meta.tensors[0].sharding_spec.startswith(
-                "wire::")
+                f"shm:{arena.name}:")
             assert pulled[0].dtype == a.dtype and _raw(pulled[0]) == _raw(a)
+        # every pull was ACKed: the port freed its staged spans
+        assert arena.free_bytes() == free0
     finally:
         ch.close()
         srv.stop()

@@ -77,7 +77,10 @@ def _bytes(t: torch.Tensor) -> bytes:
 def test_local_device_info():
     info = dt.local_device_info(CPU)
     assert info["device_count"] == 1 and info["platform"] == "cpu"
-    assert (info["arena"], info["fabric"], info["xfer"]) == ("", "", False)
+    # the send arena is advertised; the CPU has no transfer server unless
+    # the fake is switched on
+    assert info["arena"] == dt.default_send_arena().name
+    assert (info["fabric"], info["xfer"]) == ("", False)
     assert list(info) == ["process", "host", "arena", "fabric", "xfer",
                           "platform", "device_count"]
 
