@@ -5,11 +5,14 @@ torch and numpy, never jax, ml_dtypes, protobuf or any brpc_tpu module.
 Module paths and names follow the reference's, so each counterpart is easy
 to find:
 
-* ``tensor`` — the flagship model's single-device forward;
+* ``tensor`` — the flagship model: the single-device forward, and the
+  SPMD forward and train step over the five mesh axes;
+* ``parallel`` — the collective verbs, ``MeshChannel``, the rank mesh and
+  the spawn harness, on torch.distributed;
 * ``rpc`` — the tensor lane: the device handshake, the block pool, the
   TensorStore service, and a small server and channel;
-* ``entry`` — ``entry(device=None)``, the counterpart of
-  ``__graft_entry__.entry``.
+* ``entry`` — ``entry(device=None)`` and ``dryrun_multichip``, the
+  counterparts of ``__graft_entry__``'s.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA a request for the card raises.

@@ -1,8 +1,8 @@
 """Top-1 mixture of experts, all experts on one device.
 
-Port of brpc_tpu/tensor/moe.py (``MoEParams``, ``init_moe``, ``_route`` and
-the branch of ``moe_layer`` without an ``ep`` axis; the expert-parallel
-all_to_all waits for the SPMD slice).
+Port of brpc_tpu/tensor/moe.py: ``MoEParams``, ``init_moe``, ``_route`` and
+``moe_layer``, with all experts local or, over an ``ep`` axis of a rank
+mesh, the local expert shard between two all_to_alls.
 
 Numerics follow the reference: router logits in the input dtype, an fp32
 softmax, ``argmax`` taking the first of equal maxima, capacity
@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from brpc_tpu_torch.parallel import collectives
 
 
 class MoEParams(NamedTuple):
@@ -62,8 +64,12 @@ def _route(x, router, n_experts: int, capacity: int):
 
 
 def moe_layer(params: MoEParams, x, *, n_experts: int,
-              capacity_factor: float = 2.0):
-    """Run the MoE on x: [N, D] local tokens (flattened batch*seq)."""
+              capacity_factor: float = 2.0, mesh=None,
+              ep_axis: str | None = None):
+    """Run the MoE on x: [N, D] local tokens (flattened batch*seq). With
+    ``ep_axis`` (an axis of ``mesh``), params.w_in/w_out hold only the
+    local expert shard [E/ep, D, F] and the expert buffers travel by
+    all_to_all; without it all experts are local."""
     N, D = x.shape
     capacity = max(1, int(capacity_factor * N / n_experts))
     dispatch, combine = _route(x, params.router, n_experts, capacity)
@@ -71,8 +77,28 @@ def moe_layer(params: MoEParams, x, *, n_experts: int,
     combine = combine.to(x.dtype)
     # Dense dispatch: [E, C, D] expert input buffers.
     buf = torch.einsum("nec,nd->ecd", dispatch, x)
-    y = torch.einsum("ecd,edf->ecf", buf, params.w_in)
-    y = F.gelu(y, approximate="tanh")
-    y = torch.einsum("ecf,efd->ecd", y, params.w_out)
+
+    if ep_axis is not None:
+        ep = mesh.size(ep_axis)
+        e_local = n_experts // ep
+        if e_local * ep != n_experts:
+            raise ValueError(f"n_experts {n_experts} must divide by ep {ep}")
+        # [E, C, D] -> [ep, E_local, C, D]; afterwards dim 0 indexes the
+        # source peer: this rank's local experts' slots from every peer.
+        buf = buf.reshape(ep, e_local, capacity, D)
+        buf = collectives.all_to_all_dim0(buf, mesh, ep_axis)
+        buf = buf.permute(1, 0, 2, 3).reshape(e_local, ep * capacity, D)
+        y = torch.einsum("ecd,edf->ecf", buf, params.w_in)
+        y = F.gelu(y, approximate="tanh")
+        y = torch.einsum("ecf,efd->ecd", y, params.w_out)
+        y = y.reshape(e_local, ep, capacity, D).permute(1, 0, 2, 3)
+        y = collectives.all_to_all_dim0(y, mesh, ep_axis)
+        # y: [ep, E_local, C, D], dim 0 the expert shard: global expert id
+        # is shard * E_local + local, matching the dispatch layout.
+        y = y.reshape(n_experts, capacity, D)
+    else:
+        y = torch.einsum("ecd,edf->ecf", buf, params.w_in)
+        y = F.gelu(y, approximate="tanh")
+        y = torch.einsum("ecf,efd->ecd", y, params.w_out)
     # Combine back to token order: [N, D].
     return torch.einsum("nec,ecd->nd", combine, y)

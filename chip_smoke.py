@@ -35,14 +35,28 @@ unavailable, or when the port is not beside it:
             window and arena spans return to rest on both sides; a write to
             the producer's tensor after the ACK leaves the consumer's copy
             as it was; neither process leaks card memory. The peer is
-            always stopped.
+            always stopped;
+7. train  — the SPMD train step on the card, each run in a spawned rank
+            on NCCL (world 1: one card, every mesh axis 1). (a) The dry run
+            ``dryrun_multichip(1)``: forward parity, then four SGD steps
+            whose loss must fall. (b) One train step of the tests' small
+            fp32 config on the card and on the CPU (gloo) from the same
+            parameters, TF32 off: the loss and every updated leaf within a
+            stated bound. (c) The full-width train step of the reference's
+            bench (the "big" model, bf16, 4 x 512 tokens, lr 1e-2): median
+            step time by CUDA events, steps/s, tokens/s, peak memory, and
+            the share of the bf16 bound by two FLOP counts; the loss finite
+            at every step.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import os
 import select
 import statistics
@@ -53,6 +67,9 @@ import time
 import torch
 
 from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.entry import dryrun_multichip
+from brpc_tpu_torch.parallel import run_ranks
+from brpc_tpu_torch.parallel.world import tensors_to_numpy
 from brpc_tpu_torch.rpc import Channel, Controller, Server, ServerOptions
 from brpc_tpu_torch.rpc import cuda_ipc_transfer
 from brpc_tpu_torch.rpc import device_transport as dt
@@ -64,6 +81,8 @@ from brpc_tpu_torch.rpc.tensor_service import (
     make_device_channel,
 )
 from brpc_tpu_torch.tensor import ModelConfig, forward_local, init_params
+from brpc_tpu_torch.tensor.config import MeshSpec
+from brpc_tpu_torch.tensor.model import make_spmd_train_step, params_from_numpy
 
 # brpc_tpu/bench.py's "big" model: the widest configuration the repo runs
 BIG = ModelConfig(vocab=32768, d_model=2048, n_heads=16, d_head=128,
@@ -77,6 +96,21 @@ FWD_WARMUP, FWD_RUNS = 2, 7
 # difference on an NVIDIA H100 80GB HBM3 (700 W) was 1.3e-5 with max
 # |logit| 5.2; 1e-4 leaves a 7x margin.
 CARD_VS_CPU_ATOL = 1e-4
+
+
+# Phase 7b: the tests' small fp32 config (tests/test_tensor_model.py CFG),
+# one step at lr 0.1, card vs CPU, TF32 off. The bounds are the ones the
+# CPU tests hold the port to against the JAX package: the loss within 1e-4
+# and every updated leaf within 1e-5 (fp32 sums at most 64 deep on O(1)
+# values; lr 0.1 times gradients that agree to fp32 rounding).
+SMALL = ModelConfig(vocab=64, d_model=32, n_heads=4, d_head=8, d_ff=32,
+                    n_layers=1, n_experts=4, expert_capacity_factor=4.0,
+                    dtype="float32")
+SMALL_LR = 0.1
+TRAIN_LOSS_ATOL, TRAIN_LEAF_ATOL = 1e-4, 1e-5
+# Phase 7c: the reference bench's training row (brpc_tpu/bench.py:2234-2244)
+BIG_LR = 1e-2
+TRAIN_WARMUP, TRAIN_STEPS = 2, 12
 
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
@@ -101,6 +135,15 @@ def forward_flops(cfg: ModelConfig, batch: int, seq: int) -> dict:
     parts = {k: v * cfg.n_layers for k, v in per_layer.items()}
     parts["unembed"] = 2 * n * cfg.d_model * cfg.vocab
     return parts
+
+
+def reference_train_flops(cfg: ModelConfig, batch: int, seq: int) -> float:
+    """brpc_tpu/bench.py:2239-2244: 3 x the forward's model matmuls (the
+    one-hot dispatch/combine not counted)."""
+    d, dq, L = cfg.d_model, cfg.d_qkv, cfg.n_layers
+    fwd_per_tok = (L * (2 * 4 * d * dq + 2 * 2 * seq * dq
+                        + 2 * 2 * d * cfg.d_ff) + 2 * d * cfg.vocab)
+    return 3.0 * fwd_per_tok * batch * seq
 
 
 def card_name_and_limit() -> str:
@@ -578,6 +621,103 @@ def phase_cross_process(tag: str, gen):
     check(failed or rc == 0, f"the peer exited with code {rc}")
 
 
+# -- phase 7: training on the card -------------------------------------------
+
+def small_step_rank(device, params, tokens):
+    """One rank (world 1) of phase 7b: one train step from the given
+    parameters; returns (loss, new params) as numpy."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    _, step = make_spmd_train_step(SMALL, MeshSpec(), lr=SMALL_LR)
+    tokens = torch.from_numpy(tokens).to(device)
+    loss, new = step(params_from_numpy(params, device=device), tokens,
+                     torch.roll(tokens, -1, dims=1))
+    return tensors_to_numpy((loss, new))
+
+
+def big_train_rank(device):
+    """One rank (world 1) of phase 7c: the full-width train step, warmed up
+    twice feeding the returned params back, then timed step by step."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = init_params(BIG, gen, device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.randint(0, BIG.vocab, (BATCH, SEQ), dtype=torch.int32,
+                           device=device, generator=gen.manual_seed(1))
+    labels = torch.roll(tokens, -1, dims=1)
+    _, step = make_spmd_train_step(BIG, MeshSpec(), lr=BIG_LR)
+    losses, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, params = step(params, tokens, labels)
+        end.record()
+        end.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    return {"n_params": n_params, "times_ms": times, "losses": losses,
+            "peak_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def phase_train(tag: str):
+    t_start = time.perf_counter()
+    # 7a: the dry run, world 1 on NCCL
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        (dry,) = dryrun_multichip(1)
+    check(dry["loss3"] < dry["loss0"], f"dry run loss {dry}")
+    print(f"train/dryrun world 1 (NCCL, one card): {said.getvalue().strip()}"
+          f"; loss0={dry['loss0']:.6f} loss3={dry['loss3']:.6f} {tag}")
+
+    # 7b: one small fp32 step, card vs CPU, from the same parameters
+    gen = torch.Generator().manual_seed(2)
+    params = tensors_to_numpy(init_params(SMALL, gen, device="cpu"))
+    tokens = torch.randint(0, SMALL.vocab, (4, 32), dtype=torch.int32,
+                           generator=gen).numpy()
+    (card,) = run_ranks(small_step_rank, 1, args=(params, tokens))
+    (host,) = run_ranks(small_step_rank, 1, args=(params, tokens),
+                        device="cpu")
+    loss_err = abs(float(card[0]) - float(host[0]))
+    names = ("embed", "ln1", "wq", "wk", "wv", "wo", "ln2", "router",
+             "w_in", "w_out", "final_norm")
+    leaf_err = {n: float(abs(a - b).max()) for n, a, b in
+                zip(names, _leaves(card[1]), _leaves(host[1]))}
+    print(f"train/card-vs-cpu: small fp32 config, B4xT32, one step at lr "
+          f"{SMALL_LR} (no TF32): loss {float(card[0]):.6f} card, "
+          f"{float(host[0]):.6f} CPU, |diff| {loss_err:.3e} (bound "
+          f"{TRAIN_LOSS_ATOL:g}); max |updated leaf diff| "
+          + ", ".join(f"{n} {e:.2e}" for n, e in leaf_err.items())
+          + f" (bound {TRAIN_LEAF_ATOL:g}) {tag}")
+    check(loss_err <= TRAIN_LOSS_ATOL, f"train loss card vs CPU {loss_err}")
+    check(max(leaf_err.values()) <= TRAIN_LEAF_ATOL,
+          f"updated params card vs CPU {leaf_err}")
+
+    # 7c: the full-width train step
+    (big,) = run_ranks(big_train_rank, 1)
+    losses = big["losses"]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    ms = statistics.median(big["times_ms"])
+    ref_flops = reference_train_flops(BIG, BATCH, SEQ)
+    own_flops = 3 * sum(forward_flops(BIG, BATCH, SEQ).values())
+    bound = {k: f / H100_BF16_FLOPS * 1e3 for k, f in
+             (("ref", ref_flops), ("own", own_flops))}
+    print(f"train/full width: {BIG} params={big['n_params']} B{BATCH}xT{SEQ} "
+          f"lr {BIG_LR}, world 1 on NCCL; median of {TRAIN_STEPS} steps "
+          f"(CUDA events, after {TRAIN_WARMUP} warm-up) {ms:.3f} ms "
+          f"[{min(big['times_ms']):.3f}-{max(big['times_ms']):.3f}], "
+          f"{1e3 / ms:.2f} steps/s, {BATCH * SEQ / ms * 1e3:.1f} tokens/s, "
+          f"peak memory {big['peak_bytes'] / 2**30:.3f} GiB {tag}")
+    print(f"train/full width work: reference formula "
+          f"{ref_flops / 1e12:.3f} TFLOP/step (bound {bound['ref']:.3f} ms, "
+          f"{bound['ref'] / ms:.1%} of it achieved), forward_flops x 3 "
+          f"{own_flops / 1e12:.3f} TFLOP/step (bound {bound['own']:.3f} ms, "
+          f"{bound['own'] / ms:.1%}); 989 TFLOP/s bf16; losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; phase took {time.perf_counter() - t_start:.1f} s {tag}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -600,6 +740,7 @@ def main() -> int:
     phase_forward(tokens, tag)
     phase_card_vs_cpu(tag)
     phase_cross_process(tag, gen)
+    phase_train(tag)
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "
