@@ -1,1 +1,1 @@
-"""butil — host utilities the tensor lane needs (IOBuf)."""
+"""butil — host utilities: IOBuf, flags, EndPoint, DoublyBufferedData."""

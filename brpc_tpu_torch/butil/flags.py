@@ -1,9 +1,11 @@
-"""flags — the runtime configuration registry, the part the tensor lane reads.
+"""flags — the runtime configuration registry.
 
 Copy of the subset of brpc_tpu/butil/flags.py that the port needs: typed
 flags defined once, read with ``get_flag``, edited live with ``set_flag``,
 and an environment override ``BRPC_TPU_<NAME>`` read when the flag is
-defined. An unparsable or rejected override keeps the default.
+defined. An unparsable or rejected override keeps the default. The tensor
+lane defines its flags in device_transport.py, the circuit breaker its
+own in circuit_breaker.py, with the reference's defaults.
 """
 from __future__ import annotations
 
@@ -58,6 +60,10 @@ def _define(name: str, default: Any, help_: str, type_: type,
         f = Flag(name, value, help_, type_, validator, reloadable)
         _registry[name] = f
         return f
+
+
+def define_int(name: str, default: int, help_: str = "", **kw) -> Flag:
+    return _define(name, int(default), help_, int, **kw)
 
 
 def define_bool(name: str, default: bool, help_: str = "", **kw) -> Flag:

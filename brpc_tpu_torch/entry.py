@@ -144,8 +144,13 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None,
     specs = _dryrun_specs(n_devices)
     results = run_ranks(_dryrun_rank, n_devices, args=(specs, inputs),
                         device=device, deadline_s=deadline_s)
-    for r in results[0]:
+    return _report_dryrun(results[0])
+
+
+def _report_dryrun(results: list) -> list:
+    """Print one line per mesh of a rank's dry-run results; return them."""
+    for r in results:
         print(f"dryrun_multichip ok: mesh={r['mesh']} fwd_parity=allclose "
               f"(max err {r['fwd_err']:.2e}) loss0={r['loss0']:.4f} "
               f"loss3={r['loss3']:.4f}")
-    return results[0]
+    return results

@@ -1,183 +1,354 @@
-"""Channel — the client endpoint of the tensor lane.
+"""Channel — the client endpoint.
 
-The reference's Channel (brpc_tpu/rpc/channel.py) adds retries, load
-balancing, naming, backup requests and the native runtime; they come with
-the reference-grade channel. This one keeps what the lane needs: one
-connection per Channel, opened on the first call; the device handshake on
-connect when ``use_device_transport`` is set (through the same
-``_app_connect_factory`` seam as the reference); a correlation-id table
-filled by a reader thread; and a synchronous ``call_method`` that fails
-with ERPCTIMEDOUT when its deadline passes.
+Port of brpc_tpu/rpc/channel.py. ``init('ip:port')`` talks to one server;
+``init('list://a,b', 'rr')`` (or any naming-service URL, with any load
+balancer ``name`` or ``name:params``) resolves servers through a
+NamingServiceThread and picks one per attempt; ``init_with_filter`` adds
+a node filter (the partition channels use it). ``call_method`` is
+synchronous without ``done`` and returns at once with it; ``done(cntl)``
+then runs on the thread that ends the RPC.
+
+Per attempt the controller asks ``_select_socket`` for a connection:
+the cluster-recover gate, then the balancer (excluding the servers that
+already failed this RPC), then the connection type: ``single`` (one
+connection per server shared by every channel of the process through
+the SocketMap, or the naming service's own socket), ``pooled`` (a pool
+per server) or ``short`` (a connection per RPC). Failed attempts are
+retried under ``max_retry`` by the controller's retry policy; with
+``backup_request_ms`` a second attempt goes to another server when the
+first has not answered in time. With ``enable_circuit_breaker`` every
+call's end feeds the connection's breaker, which fails the socket when
+the error rate crosses its threshold.
+
+With ``use_device_transport`` every connection runs the device handshake
+before its first request, a naming service's sockets included (the hook
+is attached before their first connect), and the channel keeps the
+``single`` type, as the reference does: the ACK of a pull must reach the
+endpoint that retains it. ``call_on_socket`` sends a call on one given
+connection; TensorClient sends that ACK with it.
+
+Left out of the reference's options: ``auth``, ``use_ssl`` and
+``ssl_verify`` (the port has no authenticator and no TLS), and protocols
+other than ``tpu_std``. Also left out: rpc_dump and the native runtime.
 """
 from __future__ import annotations
 
-import itertools
-import socket as pysocket
+import dataclasses
 import threading
-import time
+from collections import deque
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
+from brpc_tpu_torch.butil.endpoint import EndPoint
 from brpc_tpu_torch.device import DeviceLike
-from brpc_tpu_torch.rpc import errors, tpu_std_protocol
+from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.controller import Controller
-from brpc_tpu_torch.rpc.server import EndPoint
 from brpc_tpu_torch.rpc.socket import Socket
 
 
 @dataclass
 class ChannelOptions:
-    """The reference's ChannelOptions defaults for the fields this channel
-    reads, plus the identity its device handshake announces."""
+    """The reference's ChannelOptions and defaults, without auth and ssl,
+    plus the device the handshake announces."""
 
     connect_timeout_ms: float = 200
     timeout_ms: float = 500
-    # use_rdma analog: the connection runs the device handshake
+    backup_request_ms: float = -1
+    max_retry: int = 3
+    protocol: str = "tpu_std"
+    connection_type: str = "single"  # single | pooled | short
+    health_check_interval_s: float = -1
+    enable_circuit_breaker: bool = False
+    # use_rdma analog: connections run the device handshake
     use_device_transport: bool = False
     # the card unless the caller asks for the CPU
     device: DeviceLike = None
 
 
-class _Pending:
-    __slots__ = ("cntl", "done")
-
-    def __init__(self, cntl: Controller):
-        self.cntl = cntl
-        self.done = threading.Event()
+def _start_call(channel, method_full_name: str, cntl: Controller, request,
+                response, done: Optional[Callable]):
+    cntl._setup_call(channel, method_full_name, response, done)
+    try:
+        cntl._request_payload = (request.SerializeToString()
+                                 if request is not None else b"")
+    except Exception as e:
+        cntl.set_failed(errors.EREQUEST, f"fail to serialize request: {e}")
+        cntl._end_rpc(locked=False)
+        return
+    cntl.issue_rpc()
+    if done is None:
+        cntl.join()
 
 
 class Channel:
     def __init__(self, options: Optional[ChannelOptions] = None):
-        self.options = options or ChannelOptions()
+        # a private copy: coercions must not reach a caller's options
+        self.options = (dataclasses.replace(options) if options is not None
+                        else ChannelOptions())
+        if (self.options.use_device_transport
+                and self.options.connection_type != "single"):
+            self.options.connection_type = "single"
         self._server_ep: Optional[EndPoint] = None
-        self._sock: Optional[Socket] = None
-        self._reader: Optional[threading.Thread] = None
-        self._connect_lock = threading.Lock()
-        self._pending: Dict[int, _Pending] = {}
-        self._pending_lock = threading.Lock()
-        self._ids = itertools.count(1)
+        self._single_sid: Optional[int] = None
+        self._single_lock = threading.Lock()
+        self._pools: Dict[EndPoint, deque] = {}  # pooled connections
+        self._pool_lock = threading.Lock()
+        self._lb = None
+        self._ns_thread = None
+        self._circuit_breakers = {}  # socket id -> CircuitBreaker
+        self._cb_lock = threading.Lock()
+        self._init_done = False
+        self._mapped_key = None  # our reference in the SocketMap
+        self._mapped_sid = None
 
-    def init(self, target) -> int:
-        """init('ip:port'); 0 on success."""
+    def close(self):
+        """Stop the naming service (its sockets are recycled), drop the
+        SocketMap reference and close pooled connections."""
+        if self._ns_thread is not None:
+            self._ns_thread.stop()
+        if self._mapped_key is not None:
+            from brpc_tpu_torch.rpc.socket_map import get_global_socket_map
+
+            get_global_socket_map().remove(self._mapped_key,
+                                           expected_sid=self._mapped_sid)
+            self._mapped_key = self._mapped_sid = None
+        with self._pool_lock:
+            pooled = [s for q in self._pools.values() for s in q]
+            self._pools.clear()
+        for sock in pooled:
+            sock.recycle()
+
+    # -- init --------------------------------------------------------------
+    def init(self, target, lb_name: str = "") -> int:
+        """init('ip:port') for one server, or init('list://h1:p1,h2:p2',
+        'rr') / init('file://...', 'la') and the like; 0 on success."""
+        if self.options.protocol != "tpu_std":
+            return errors.EPROTONOTSUP
+        if "://" in str(target):
+            return self.init_with_filter(str(target), lb_name, None)
         try:
-            self._server_ep = (target if isinstance(target, EndPoint)
-                               else EndPoint.parse(str(target)))
-        except ValueError:
+            ep = (target if isinstance(target, EndPoint)
+                  else EndPoint.parse(str(target)))
+            self._server_ep = ep.resolve()
+        except (ValueError, OSError):
             return errors.EINVAL
+        self._init_done = True
         return 0
 
+    def init_with_filter(self, naming_url: str, lb_name: str,
+                         node_filter) -> int:
+        """A naming service whose nodes pass ``node_filter((endpoint,
+        weight, tag))``; 0 on success, EINVAL for an unknown scheme or
+        balancer, a malformed recover suffix or an unparsable list."""
+        if self.options.protocol != "tpu_std":
+            return errors.EPROTONOTSUP
+        from brpc_tpu_torch.rpc.load_balancer import create_load_balancer
+        from brpc_tpu_torch.rpc.naming_service import start_naming_service
+
+        self._lb = create_load_balancer(lb_name or "rr")
+        if self._lb is None:
+            return errors.EINVAL
+        try:
+            self._ns_thread = start_naming_service(
+                naming_url, self._lb, self.options, node_filter)
+        except ValueError:
+            return errors.EINVAL
+        if self._ns_thread is None:
+            return errors.EINVAL
+        self._init_done = True
+        return 0
+
+    # -- connections -------------------------------------------------------
     def _app_connect_factory(self):
-        """Per-connection app-level connect hook (the AppConnect seam):
-        each connection gets its own DeviceEndpoint."""
+        """Each new connection gets its own DeviceEndpoint."""
         if not self.options.use_device_transport:
             return None
         from brpc_tpu_torch.rpc.device_transport import DeviceEndpoint
 
-        return lambda: DeviceEndpoint(device=self.options.device).app_connect
+        device = self.options.device
+        return lambda: DeviceEndpoint(device=device).app_connect
 
-    def _get_socket(self) -> Optional[Socket]:
-        with self._connect_lock:
-            if self._sock is not None:
-                return self._sock
-            try:
-                conn = pysocket.create_connection(
-                    tuple(self._server_ep),
-                    timeout=self.options.connect_timeout_ms / 1000.0)
-            except OSError:
-                return None
-            conn.settimeout(None)
-            sock = Socket(conn, str(self._server_ep))
+    def _connect_timeout_s(self) -> float:
+        return self.options.connect_timeout_ms / 1000.0
+
+    def _connect_new_socket(self, ep: EndPoint, node_sid: int):
+        factory = self._app_connect_factory()
+        sid = Socket.create(
+            remote_side=ep,
+            app_connect=factory() if factory is not None else None)
+        sock = Socket.address(sid)
+        sock.node_sid = node_sid or sid
+        if sock.connect(self._connect_timeout_s()) != 0:
+            sock.recycle()
+            return None
+        return sock
+
+    def _select_socket(self, cntl: Controller):
+        """(socket, 0) for the next attempt, or (None, error code)."""
+        if self._lb is not None:
+            policy = getattr(self._lb, "cluster_recover_policy", None)
+            if (policy is not None and policy.stop_recover_if_necessary()
+                    and policy.do_reject(self._lb.server_ids())):
+                return None, errors.EREJECT
+            sid = self._lb.select_server(exclude=cntl._excluded_sids,
+                                         request_code=cntl.request_code)
+            if sid is None:
+                if policy is not None:
+                    policy.start_recover()
+                return None, errors.EFAILEDSOCKET
+            cntl._lb = self._lb
+            main_sock = Socket.address(sid)
+            if main_sock is None or main_sock.failed():
+                return None, errors.EFAILEDSOCKET
+            if self.options.connection_type != "single":
+                return self._connection_of_type(main_sock.remote_side, cntl,
+                                                sid)
+            # a naming service's sockets dial on first use: the device
+            # handshake is attached before that
             factory = self._app_connect_factory()
-            if factory is not None:
-                try:
-                    factory()(sock)
-                except BaseException:
-                    sock.close()
-                    raise
-            self._sock = sock
-            self._reader = threading.Thread(
-                target=self._read, args=(sock,), name="tensor-channel-read",
-                daemon=True)
-            self._reader.start()
-            return sock
-
-    def _read(self, sock: Socket):
-        sock.read_loop(((tpu_std_protocol.parse, self._on_response),), None)
-        with self._connect_lock:
-            if self._sock is sock:
-                self._sock = None
-        sock.close()
-        with self._pending_lock:
-            pending, self._pending = self._pending, {}
-        for p in pending.values():
-            p.cntl.set_failed(errors.EFAILEDSOCKET, "connection closed")
-            p.done.set()
-
-    def _on_response(self, msg):
-        with self._pending_lock:
-            p = self._pending.pop(msg.meta.correlation_id, None)
-        if p is None:
-            return  # late response of a call that already timed out
-        cntl = p.cntl
-        cntl._response_rpc_meta = msg.meta
-        if msg.meta.response.error_code != 0:
-            cntl.set_failed(msg.meta.response.error_code,
-                            msg.meta.response.error_text)
-        else:
-            try:
-                if cntl._response is not None and msg.payload:
-                    cntl._response.ParseFromString(msg.payload)
-                cntl.response_attachment = msg.attachment
-            except ValueError as e:
-                cntl.set_failed(errors.EREQUEST, f"fail to parse response: {e}")
-        p.done.set()
-
-    def call_method(self, method_full_name: str, cntl: Controller,
-                    request, response):
-        """Synchronous call: returns when the response arrived, the
-        connection broke, or the deadline passed (ERPCTIMEDOUT)."""
-        start = time.monotonic()
+            if (factory is not None and main_sock.app_connect is None
+                    and main_sock.fd() is None):
+                main_sock.app_connect = factory()
+            if main_sock.ensure_connected(self._connect_timeout_s()) != 0:
+                return None, errors.EFAILEDSOCKET
+            return main_sock, 0
         if self._server_ep is None:
+            return None, errors.EINVAL
+        if self.options.connection_type != "single":
+            return self._connection_of_type(self._server_ep, cntl, 0)
+        return self._shared_socket(self._server_ep)
+
+    def _connection_of_type(self, ep: EndPoint, cntl: Controller,
+                            node_sid: int):
+        if self.options.connection_type == "pooled":
+            with self._pool_lock:
+                pool = self._pools.setdefault(ep, deque())
+                while pool:
+                    sock = pool.popleft()
+                    if not sock.failed():
+                        return sock, 0
+                    sock.recycle()
+        sock = self._connect_new_socket(ep, node_sid)
+        if sock is None:
+            return None, errors.EFAILEDSOCKET
+        sock.connection_type = self.options.connection_type
+        return sock, 0
+
+    def _shared_socket(self, ep: EndPoint):
+        """The process-wide connection of this channel's signature
+        (SocketMap), kept while it serves new calls."""
+        from brpc_tpu_torch.rpc.socket_map import (
+            get_global_socket_map,
+            make_key,
+        )
+
+        with self._single_lock:
+            if self._single_sid is not None:
+                sock = Socket.address(self._single_sid)
+                if sock is not None and sock.usable_for_new_calls():
+                    if sock.ensure_connected(self._connect_timeout_s()) != 0:
+                        return None, errors.EFAILEDSOCKET
+                    return sock, 0
+            key = make_key(ep, app_connect_id=(
+                f"device:{self.options.device}"
+                if self.options.use_device_transport else ""))
+            smap = get_global_socket_map()
+            sid = smap.insert(
+                ep, key,
+                health_check_interval_s=self.options.health_check_interval_s,
+                app_connect_factory=self._app_connect_factory())
+            if self._mapped_key is not None:
+                smap.remove(self._mapped_key, expected_sid=self._mapped_sid)
+            self._mapped_key, self._mapped_sid = key, sid
+            self._single_sid = sid
+            sock = Socket.address(sid)
+            if sock is None or sock.ensure_connected(
+                    self._connect_timeout_s()) != 0:
+                return None, errors.EFAILEDSOCKET
+            return sock, 0
+
+    def _on_rpc_end(self, cntl: Controller):
+        for sock in cntl._accessed:
+            if sock.connection_type == "short":
+                sock.recycle()
+            elif sock.connection_type == "pooled":
+                if sock.failed():
+                    sock.recycle()
+                else:
+                    with self._pool_lock:
+                        self._pools.setdefault(sock.remote_side,
+                                               deque()).append(sock)
+        if self.options.enable_circuit_breaker and cntl._current_sock:
+            self._feed_circuit_breaker(cntl._current_sock, cntl)
+
+    def _feed_circuit_breaker(self, sock: Socket, cntl: Controller):
+        from brpc_tpu_torch.rpc.circuit_breaker import CircuitBreaker
+
+        if sock.lame_duck:
+            return  # a planned drain is no health signal
+        with self._cb_lock:
+            cb = self._circuit_breakers.get(sock.node_sid)
+            if cb is None:
+                cb = CircuitBreaker()
+                self._circuit_breakers[sock.node_sid] = cb
+        if not cb.on_call_end(cntl.error_code_value, cntl.latency_us):
+            node = Socket.address(sock.node_sid) or sock
+            node.set_failed(errors.EFAILEDSOCKET, "isolated by circuit breaker")
+
+    # -- the RPC -----------------------------------------------------------
+    def call_method(self, method_full_name: str, cntl: Controller,
+                    request, response, done: Optional[Callable] = None):
+        """Synchronous without ``done``; with it, returns at once and
+        ``done(cntl)`` runs when the RPC ends."""
+        if not self._init_done:
             cntl.set_failed(errors.EINVAL, "channel not initialized")
+            if done:
+                done(cntl)
             return
         if cntl.timeout_ms is None:
             cntl.timeout_ms = self.options.timeout_ms
-        cntl._method_full_name = method_full_name
-        cntl._deadline = start + cntl.timeout_ms / 1000.0
-        cntl._response = response
-        sock = self._get_socket()
-        if sock is None:
-            cntl.set_failed(errors.EFAILEDSOCKET,
-                            f"cannot connect to {self._server_ep}")
-            return
-        cntl._current_sock = sock
-        cntl.remote_side = sock.remote_side
-        cid = next(self._ids)
-        payload = request.SerializeToString() if request is not None else b""
-        frame = tpu_std_protocol.pack_request(payload, cntl, cid)
-        p = _Pending(cntl)
-        with self._pending_lock:
-            self._pending[cid] = p
-        if sock.write(frame) != 0:
-            with self._pending_lock:
-                self._pending.pop(cid, None)
-            cntl.set_failed(errors.EFAILEDSOCKET, "write failed")
-            return
-        if not p.done.wait(max(0.0, cntl._deadline - time.monotonic())):
-            with self._pending_lock:
-                mine = self._pending.pop(cid, None) is not None
-            if mine:
-                cntl.set_failed(errors.ERPCTIMEDOUT,
-                                f"reached timeout={cntl.timeout_ms}ms")
-            else:
-                p.done.wait()  # the reader is completing it right now
+        if cntl.max_retry == 3:  # the controller's default: take ours
+            cntl.max_retry = self.options.max_retry
+        if (cntl.backup_request_ms is None
+                and self.options.backup_request_ms > 0):
+            cntl.backup_request_ms = self.options.backup_request_ms
+        _start_call(self, method_full_name, cntl, request, response, done)
 
-    def close(self):
-        """Close the connection and wait for its reader."""
-        with self._connect_lock:
-            sock, self._sock = self._sock, None
-            reader, self._reader = self._reader, None
-        if sock is not None:
-            sock.close()
-        if reader is not None:
-            reader.join(5.0)
+    def call(self, method_full_name: str, request, response_class,
+             timeout_ms: Optional[float] = None, **cntl_kwargs):
+        """A synchronous call returning (controller, response)."""
+        cntl = Controller()
+        if timeout_ms is not None:
+            cntl.timeout_ms = timeout_ms
+        for k, v in cntl_kwargs.items():
+            setattr(cntl, k, v)
+        response = response_class() if response_class is not None else None
+        self.call_method(method_full_name, cntl, request, response)
+        return cntl, response
+
+
+class _OneSocket:
+    """The channel of a call pinned to one connection."""
+
+    def __init__(self, sock: Socket):
+        self._sock = sock
+
+    def _select_socket(self, cntl: Controller):
+        if self._sock.failed():
+            return None, errors.EFAILEDSOCKET
+        return self._sock, 0
+
+    def _on_rpc_end(self, cntl: Controller):
+        pass
+
+
+def call_on_socket(sock: Socket, method_full_name: str, cntl: Controller,
+                   request, response, done: Optional[Callable] = None):
+    """One attempt on ``sock`` itself: no balancing, no retry, no backup
+    request. Fails with EFAILEDSOCKET when the connection is gone."""
+    if cntl.timeout_ms is None:
+        cntl.timeout_ms = ChannelOptions.timeout_ms
+    cntl.max_retry = 0
+    cntl.backup_request_ms = None
+    _start_call(_OneSocket(sock), method_full_name, cntl, request, response,
+                done)

@@ -596,9 +596,10 @@ class DeviceEndpoint:
 
     # ---- send path ----
     def prepare_send(self, tensors: List, meta, attachment: IOBuf,
-                     timeout_s: float = 10.0) -> bool:
+                     timeout_s: float = 10.0) -> int:
         """Fill meta.tensors + attachment for ``tensors``; blocks while the
-        send window is full (False when it stays full past timeout_s).
+        send window is full. Returns the send's sequence number, which its
+        ACK names, or 0 when the window stays full past timeout_s.
 
         Lanes, in the reference's order: same process -> the tensors
         themselves (a ticket rides the wire); a peer with a transfer server
@@ -616,7 +617,7 @@ class DeviceEndpoint:
             while self._inflight + total > self.window_bytes:
                 remain = deadline - time.monotonic()
                 if remain <= 0:
-                    return False
+                    return 0
                 self._window_cond.wait(remain)
             self._inflight += total
         with self._lock:
@@ -638,7 +639,7 @@ class DeviceEndpoint:
             raise
         with self._lock:
             self._retained[seq] = (release, total)
-        return True
+        return seq
 
     def _xfer_server_for_send(self):
         """The transfer server when the xfer lane is this send's lane."""
@@ -714,6 +715,14 @@ class DeviceEndpoint:
                 with self._window_cond:
                     self._inflight = max(0, self._inflight - total)
                     self._window_cond.notify_all()
+
+    def release_all(self):
+        """The connection is gone, so no ACK can arrive: release every
+        retained send."""
+        with self._lock:
+            seqs = list(self._retained)
+        for seq in seqs:
+            self.on_ack(seq)
 
     @property
     def inflight_bytes(self) -> int:

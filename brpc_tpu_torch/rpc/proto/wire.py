@@ -4,8 +4,10 @@ The port runs where no protobuf package exists, so it cannot use the
 reference's generated ``rpc_meta_pb2`` / ``tensor_service_pb2``. This
 module encodes and decodes exactly the messages of
 ``brpc_tpu/rpc/proto/rpc_meta.proto`` (``RpcMeta``, ``RpcRequestMeta``,
-``RpcResponseMeta``, ``TensorMeta``) and ``tensor_service.proto`` (the six
-``Tensor*`` messages), byte for byte as protobuf does:
+``RpcResponseMeta``, ``TensorMeta``), ``tensor_service.proto`` (the six
+``Tensor*`` messages) and ``echo.proto`` (``EchoRequest``,
+``EchoResponse``: the fixture of the channel tests), byte for byte as
+protobuf does:
 
 * fields are written in field-number order;
 * proto3 implicit presence: a scalar equal to its default (0, "", False)
@@ -24,7 +26,7 @@ lame-duck field 8 a native server may set in ``RpcMeta`` is one).
 
 The message classes keep the generated API the lane uses: attribute
 access, keyword construction, ``SerializeToString``, ``ParseFromString``,
-``HasField`` and ``tensors.add()``.
+``MergeFrom`` (the combo channels' default merger), ``HasField`` and ``tensors.add()``.
 """
 from __future__ import annotations
 
@@ -191,6 +193,14 @@ class Message:
         self._mark()
         return len(buf)
 
+    def MergeFrom(self, other: "Message"):
+        """protobuf's merge: set scalars of ``other`` overwrite, repeated
+        fields append, sub-messages merge."""
+        if type(other) is not type(self):
+            raise TypeError(f"cannot merge {type(other).__name__} into "
+                            f"{type(self).__name__}")
+        self.ParseFromString(other.SerializeToString())
+
     def _merge(self, buf, i: int, end: int):
         d = self.__dict__
         while i < end:
@@ -324,3 +334,13 @@ class TensorAckRequest(Message):
 class TensorAckResponse(Message):
     FIELDS = ((1, "ok", BOOL, None),)
 
+
+# -- echo.proto -------------------------------------------------------------
+
+class EchoRequest(Message):
+    FIELDS = ((1, "message", STRING, None), (2, "sleep_us", INT32, None),
+              (3, "code", INT32, None))
+
+
+class EchoResponse(Message):
+    FIELDS = ((1, "message", STRING, None),)

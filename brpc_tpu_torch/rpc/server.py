@@ -12,25 +12,13 @@ from __future__ import annotations
 import socket as pysocket
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+from brpc_tpu_torch.butil.endpoint import EndPoint  # noqa: F401 (old home)
 from brpc_tpu_torch.device import DeviceLike
 from brpc_tpu_torch.rpc import tpu_std_protocol
 from brpc_tpu_torch.rpc.service import MethodInfo, Service
 from brpc_tpu_torch.rpc.socket import Socket
-
-
-class EndPoint(NamedTuple):
-    ip: str
-    port: int
-
-    def __str__(self) -> str:
-        return f"{self.ip}:{self.port}"
-
-    @classmethod
-    def parse(cls, text: str) -> "EndPoint":
-        ip, _, port = str(text).rpartition(":")
-        return cls(ip or "127.0.0.1", int(port))
 
 
 @dataclass
@@ -71,8 +59,11 @@ class Server:
 
     # -- lifecycle ---------------------------------------------------------
     def start(self, address="127.0.0.1:0") -> int:
-        """Listen on 'ip:port' (port 0: any free port); 0 on success."""
-        ep = EndPoint.parse(address)
+        """Listen on 'ip:port' or ':port' (port 0: any free port); 0 on
+        success."""
+        address = str(address)
+        ep = EndPoint.parse("127.0.0.1" + address if address.startswith(":")
+                            else address)
         with self._lock:
             if self._started:
                 return -1
@@ -108,7 +99,7 @@ class Server:
                 conn, addr = self._listen.accept()
             except OSError:
                 return  # listening socket closed by stop()
-            sock = Socket(conn, f"{addr[0]}:{addr[1]}")
+            sock = Socket(conn, EndPoint(addr[0], addr[1]))
             with self._lock:
                 if not self._started:
                     sock.close()
@@ -121,7 +112,7 @@ class Server:
         try:
             sock.read_loop(parsers, self)
         finally:
-            sock.close()
+            sock.close()  # releases what the connection's endpoint retains
             with self._lock:
                 if sock in self._conns:
                     self._conns.remove(sock)

@@ -164,7 +164,10 @@ class TensorStoreService(Service):
 
 class TensorClient:
     """Client-side helper: push/pull tensors through a channel whose
-    connection carries a DeviceEndpoint."""
+    connections carry a DeviceEndpoint: a Channel to one server or behind
+    a naming service and a load balancer, or a SelectiveChannel. A push's
+    ACK comes back in its response and is applied on the connection that
+    served it; a pull's ACK is sent on the connection that served it."""
 
     def __init__(self, channel):
         self.channel = channel
@@ -189,6 +192,7 @@ class TensorClient:
     def pull(self, name: str, timeout_ms: float = 10000, device=None):
         """``device=None`` returns host tensors (the xfer lane: tensors on
         the channel's device); a device lands the bytes there."""
+        from brpc_tpu_torch.rpc.channel import call_on_socket
         from brpc_tpu_torch.rpc.controller import Controller
 
         cntl = Controller()
@@ -209,14 +213,15 @@ class TensorClient:
             meta, cntl.response_attachment, device=device,
             endpoint=ep if isinstance(ep, DeviceEndpoint) else None)
         if seq:
-            # explicit ACK so the server frees its retained span/window
+            # the explicit ACK frees the server's retained span and window.
+            # It rides the connection that served the pull, whose endpoint
+            # retains it; a balancer could send it to another server
+            # (ROADMAP queue C #8). The ACK's bytes are the reference's.
             ack_cntl = Controller()
             ack_cntl.timeout_ms = timeout_ms
-            self.channel.call_method(
-                "TensorStore.Ack", ack_cntl,
-                ts_pb2.TensorAckRequest(seq=seq),
-                ts_pb2.TensorAckResponse(),
-            )
+            call_on_socket(cntl._current_sock, "TensorStore.Ack", ack_cntl,
+                           ts_pb2.TensorAckRequest(seq=seq),
+                           ts_pb2.TensorAckResponse())
         return cntl, arrays
 
 

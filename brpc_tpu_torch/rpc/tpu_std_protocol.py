@@ -13,6 +13,7 @@ from __future__ import annotations
 import struct
 import time
 
+from brpc_tpu_torch.bthread import id as bthread_id
 from brpc_tpu_torch.butil.iobuf import IOBuf
 from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.controller import Controller
@@ -82,6 +83,11 @@ def parse(portal: IOBuf, sock, read_eof: bool, arg) -> ParseResult:
 # -- client side -----------------------------------------------------------
 
 def pack_request(payload: bytes, cntl: Controller, correlation_id: int) -> IOBuf:
+    """The frame of one attempt. Its tensors are packed on the attempt's
+    connection (``cntl._current_sock``), into a copy of the request
+    attachment, so a retry does not carry the first attempt's bytes too;
+    the send is recorded on the controller, which releases the sends of
+    the attempts that lose."""
     meta = RpcMeta()
     service, _, method = cntl._method_full_name.rpartition(".")
     meta.request.service_name = service
@@ -92,18 +98,37 @@ def pack_request(payload: bytes, cntl: Controller, correlation_id: int) -> IOBuf
         meta.request.timeout_ms = remain_ms
     meta.correlation_id = correlation_id
     meta.compress_type = cntl.compress_type
+    attachment = cntl.request_attachment
     if cntl._outbound_tensors:
         # the connection's DeviceEndpoint (or a per-call one) fills
         # meta.tensors + the attachment
         from brpc_tpu_torch.rpc.device_transport import DeviceEndpoint
 
-        ep = (cntl._current_sock.app_state
-              if cntl._current_sock is not None else None)
+        sock = cntl._current_sock
+        ep = sock.app_state if sock is not None else None
         if not isinstance(ep, DeviceEndpoint):
-            ep = DeviceEndpoint()
-        ep.prepare_send(cntl._outbound_tensors, meta,
-                        cntl.request_attachment)
-    return pack_frame(meta, payload, cntl.request_attachment)
+            ep = sock = None
+        attachment = IOBuf()
+        attachment.append(cntl.request_attachment)
+        seq = (ep or DeviceEndpoint()).prepare_send(cntl._outbound_tensors,
+                                                     meta, attachment)
+        if seq and ep is not None:
+            cntl._sends.append((correlation_id, sock, ep, seq))
+    return pack_frame(meta, payload, attachment)
+
+
+def process_response(msg: RpcMessage):
+    """Client completion: lock the attempt's version of the call id and
+    hand the controller the response. A response whose id is stale (its
+    RPC ended: a late answer to a timed-out or losing attempt) is dropped,
+    after it releases the send its attempt left on the connection."""
+    cid = msg.meta.correlation_id
+    try:
+        cntl = bthread_id.lock(cid)
+    except (KeyError, TimeoutError):
+        msg.socket.take_abandoned(cid)
+        return
+    cntl._on_response(msg.meta, msg.payload, msg.attachment, msg.socket)
 
 
 # -- server side -----------------------------------------------------------

@@ -46,7 +46,27 @@ unavailable, or when the port is not beside it:
             bench (the "big" model, bf16, 4 x 512 tokens, lr 1e-2): median
             step time by CUDA events, steps/s, tokens/s, peak memory, and
             the share of the bf16 bound by two FLOP counts; the loss finite
-            at every step.
+            at every step;
+8. serve behind a naming service — three ``--peer`` TensorStore servers on
+            the card, which land every push there, behind one device
+            channel over ``list://p1,p2,p3`` (the shm lane between
+            processes), with the flagship's [4, 512, 2048] bfloat16
+            activations (8 MiB) and a 64 MiB bfloat16 tensor. (a) With
+            ``rr``, then ``la``: pushes until every peer holds each tensor
+            (12 under rr), each peer storing what the balancer sent it; 24
+            pulls with their ACKs, byte-identical, far more bytes than one
+            send window; every endpoint, window and arena at rest after.
+            (b) Failover: one peer SIGKILLed; 12 pushes with max_retry=3
+            all succeed on the live two, the dead socket is failed, and no
+            client endpoint retains a send. (c) Backup requests: one peer
+            delays its Push by 300 ms; with backup_request_ms=30 every push
+            completes in under 150 ms on the other peer, rpc_backup_requests
+            counts each, and each losing send stays held until the slow
+            peer's late answer, then is released (the slow peer's copies
+            are byte-identical). (d) A SelectiveChannel over two
+            single-address device channels, one peer killed: pushes still
+            succeed and land on the live peer's card. A killed peer's shared
+            arena is unlinked here. The peers are always stopped.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -70,11 +90,20 @@ from brpc_tpu_torch.butil import flags
 from brpc_tpu_torch.entry import dryrun_multichip
 from brpc_tpu_torch.parallel import run_ranks
 from brpc_tpu_torch.parallel.world import tensors_to_numpy
-from brpc_tpu_torch.rpc import Channel, Controller, Server, ServerOptions
+from brpc_tpu_torch.bvar import find_exposed
+from brpc_tpu_torch.rpc import (
+    Channel,
+    ChannelOptions,
+    Controller,
+    SelectiveChannel,
+    Server,
+    ServerOptions,
+)
 from brpc_tpu_torch.rpc import cuda_ipc_transfer
 from brpc_tpu_torch.rpc import device_transport as dt
 from brpc_tpu_torch.rpc.proto import wire
 from brpc_tpu_torch.rpc.service import Service, rpc_method
+from brpc_tpu_torch.rpc.socket import Socket
 from brpc_tpu_torch.rpc.tensor_service import (
     TensorClient,
     TensorStoreService,
@@ -380,11 +409,24 @@ class SmokePeer(Service):
         elif cmd["op"] == "reset":
             with self.store._lock:
                 self.store._store.clear()
+        elif cmd["op"] == "delay":
+            self.store.push_delay_s = float(cmd["seconds"])
+        elif cmd["op"] == "to_card":
+            self.store.to_card = bool(cmd["on"])
         torch.cuda.synchronize()
         ep = cntl._server_socket.app_state
         arena = dt.default_send_arena()
         server = dt._global_xfer_server()
+        # every connection's endpoint, the balanced channels' included
+        eps = [s.app_state for s in list(cntl.server._conns)
+               if s.app_state is not None]
+        with self.store._lock:
+            contents = {n: [str(t.device) for t in ts]
+                        for n, ts in self.store._store.items()}
         state = {
+            "all_retained": sum(e.retained_count for e in eps),
+            "all_inflight": sum(e.inflight_bytes for e in eps),
+            "contents": contents,
             "lanes": dt.lane_counters(),
             "retained": ep.retained_count if ep is not None else 0,
             "inflight": ep.inflight_bytes if ep is not None else 0,
@@ -400,35 +442,76 @@ class SmokePeer(Service):
         done()
 
 
+class SmokeStore(TensorStoreService):
+    """The peer's store. Phase 8 switches on ``to_card`` (a push lands on
+    the peer's card before it is answered) and sets ``push_delay_s`` on
+    one peer (a slow server for the backup requests)."""
+
+    def __init__(self):
+        super().__init__()
+        self.push_delay_s = 0.0
+        self.to_card = False
+
+    @rpc_method(wire.TensorPushRequest, wire.TensorPushResponse)
+    def Push(self, cntl, request, response, done):
+        if self.push_delay_s:
+            time.sleep(self.push_delay_s)
+        if not self.to_card:
+            return super().Push(cntl, request, response, done)
+
+        def landed():
+            with self._lock:
+                held = self._store.get(request.name)
+                if held is not None:
+                    self._store[request.name] = [t.to("cuda") for t in held]
+            torch.cuda.synchronize()
+            done()
+
+        super().Push(cntl, request, response, landed)
+
+
 def peer_main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke --peer: CUDA is not available", file=sys.stderr)
         return 2
-    store = TensorStoreService()
+    store = SmokeStore()
     srv = Server(ServerOptions())
     check(srv.add_service(store) == 0, "peer add_service")
     check(srv.add_service(SmokePeer(store)) == 0, "peer add_service")
     check(srv.start("127.0.0.1:0") == 0, "peer server start")
-    print(f"peer ready {srv.listen_endpoint.port}", flush=True)
+    arena = dt.default_send_arena()  # named here: a killed peer leaves it
+    print(f"peer ready {srv.listen_endpoint.port} "
+          f"{arena.name if arena is not None else '-'}", flush=True)
     sys.stdin.readline()  # the parent closes stdin to stop us
     srv.stop()
     return 0
 
 
-def start_peer():
-    """The peer in a fresh interpreter (never a fork after CUDA started);
-    returns (process, port). Fails when it prints no ready line."""
+def spawn_peer():
+    """The peer in a fresh interpreter (never a fork after CUDA started)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.Popen(
+    return subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--peer"],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=here)
+
+
+def await_peer(proc):
+    """(port, shared arena name) from the peer's ready line; fails, and
+    stops the peer, when it prints none."""
     ready, _, _ = select.select([proc.stdout], [], [], PEER_READY_S)
     line = proc.stdout.readline() if ready else ""
     if not line.startswith("peer ready "):
         stop_peer(proc)
         raise RuntimeError(f"chip_smoke: the peer printed no ready line "
                            f"({line!r}, exit code {proc.returncode})")
-    return proc, int(line.split()[2])
+    _, _, port, arena = line.split()
+    return int(port), arena
+
+
+def start_peer():
+    """One peer; returns (process, port)."""
+    proc = spawn_peer()
+    return proc, await_peer(proc)[0]
 
 
 def stop_peer(proc) -> int:
@@ -528,7 +611,8 @@ def run_lane_payload(client, devch, lane: str, label: str, x, tag: str):
           f"{name}: the pulled copy changed with the peer's tensor")
     del got, y, ref
     check(arena.free_bytes() == free0, f"{name}: send arena spans not freed")
-    ep = devch._sock.app_state if devch._sock is not None else None
+    sock = Socket.address(devch._single_sid)
+    ep = sock.app_state if sock is not None else None
     check(ep is None or (ep.retained_count == 0 and ep.inflight_bytes == 0),
           f"{name}: client endpoint holds {ep.retained_count} sends, "
           f"{ep.inflight_bytes} B")
@@ -718,6 +802,348 @@ def phase_train(tag: str):
           + f"; phase took {time.perf_counter() - t_start:.1f} s {tag}")
 
 
+# -- phase 8: serve behind a naming service ----------------------------------
+
+N_PEERS = 3
+PULLS_8A = 24
+PUSHES_8B = 12
+PUSHES_8C = 6
+PUSH_DELAY_S = 0.3
+BACKUP_MS = 30
+BACKUP_BOUND_S = 0.150  # a backed-up push against the 300 ms peer
+SHM_DIR = "/dev/shm"
+
+
+def _device_channel(target: str, lb: str = "", **opts) -> Channel:
+    ch = Channel(ChannelOptions(use_device_transport=True, **opts))
+    check(ch.init(target, lb) == 0, f"device channel init {target} {lb}")
+    return ch
+
+
+def _client_at_rest(ch, what: str):
+    """Every connection of ``ch`` retains no send; the send arena is
+    whole; no publication is left."""
+    sids = (ch._lb.server_ids() if ch._lb is not None
+            else [ch._single_sid] if ch._single_sid is not None else [])
+    for sid in sids:
+        sock = Socket.address(sid)
+        ep = sock.app_state if sock is not None else None
+        if ep is not None:
+            check(ep.retained_count == 0 and ep.inflight_bytes == 0,
+                  f"{what}: client endpoint of {sock} holds "
+                  f"{ep.retained_count} sends, {ep.inflight_bytes} B")
+    arena = dt.default_send_arena()
+    check(arena.free_bytes() == arena.size, f"{what}: send arena spans held")
+    server = dt._global_xfer_server()
+    check(server is None or server.published_count() == 0,
+          f"{what}: publications left")
+
+
+def _peers_at_rest(ctl: dict, what: str):
+    for port, c in ctl.items():
+        st = peer_control(c, "state")
+        check(st["all_retained"] == 0 and st["all_inflight"] == 0
+              and st["arena_free"] == st["arena_size"],
+              f"{what}: peer {port} not at rest: retained "
+              f"{st['all_retained']}, {st['all_inflight']} B in flight, "
+              f"arena {st['arena_free']}/{st['arena_size']} B free")
+
+
+def _wait(cond, deadline_s: float, what: str):
+    end = time.monotonic() + deadline_s
+    while not cond():
+        check(time.monotonic() < end, f"{what} within {deadline_s} s")
+        time.sleep(0.01)
+
+
+def _ms(xs) -> float:
+    return round(statistics.median(xs) * 1e3, 3)
+
+
+def naming_balanced(url: str, lb: str, tensors: dict, ctl: dict, tag: str):
+    """8a: pushes until every peer holds each tensor, then 24 pulls with
+    their ACKs through one balanced channel."""
+    dev = torch.device("cuda")
+    for c in ctl.values():
+        peer_control(c, "reset")
+    ch = _device_channel(url, lb)
+    try:
+        client = TensorClient(ch)
+        sent = {port: set() for port in ctl}
+        push_s = {name: [] for name in tensors}
+        pushes = 0
+        for name, x in tensors.items():
+            holders = set()
+            while len(holders) < N_PEERS:
+                check(pushes < 60, f"8a/{lb}: {lb} never reached every peer")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cntl, resp = client.push(name, [x])
+                push_s[name].append(time.perf_counter() - t0)
+                check(not cntl.failed() and resp.ok,
+                      f"8a/{lb} push {name}: {cntl.error_text}")
+                port = cntl.remote_side.port
+                holders.add(port)
+                sent[port].add(name)
+                pushes += 1
+        if lb == "rr":
+            check(pushes == N_PEERS * len(tensors),
+                  f"8a/rr took {pushes} pushes")
+        for port, c in ctl.items():
+            contents = peer_control(c, "state")["contents"]
+            check(set(contents) == sent[port],
+                  f"8a/{lb}: peer {port} holds {sorted(contents)}, "
+                  f"{lb} sent it {sorted(sent[port])}")
+            check(all(d.startswith("cuda") for ds in contents.values()
+                      for d in ds), f"8a/{lb}: peer {port} off the card")
+        names = list(tensors)
+        pull_s = {name: [] for name in tensors}
+        pulled = 0
+        for j in range(PULLS_8A):
+            name = names[j % len(names)]
+            x = tensors[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pcntl, got = client.pull(name, device=dev)
+            torch.cuda.synchronize()
+            pull_s[name].append(time.perf_counter() - t0)
+            check(not pcntl.failed() and got is not None,
+                  f"8a/{lb} pull {name}: {pcntl.error_text}")
+            check(torch.equal(u8(got[0]), u8(x)), f"8a/{lb} {name}: bytes differ")
+            pulled += x.numel() * x.element_size()
+            del got
+        check(pulled > dt.DEFAULT_WINDOW_BYTES,
+              f"8a/{lb}: {pulled} B pulled is not past one window")
+        _client_at_rest(ch, f"8a/{lb}")
+        _peers_at_rest(ctl, f"8a/{lb}")
+        out = {"pushes": pushes, "pulled_bytes": pulled,
+               "push_ms_8MiB": _ms(push_s["act0"] + push_s["act1"]
+                                    + push_s["act2"]),
+               "push_ms_64MiB": _ms(push_s["big"]),
+               "pull_ack_ms_8MiB": _ms(pull_s["act0"] + pull_s["act1"]
+                                        + pull_s["act2"]),
+               "pull_ack_ms_64MiB": _ms(pull_s["big"])}
+        print(f"naming/{lb}: {pushes} pushes over list:// of {N_PEERS} peers, "
+              f"each peer holding what {lb} sent it; {PULLS_8A} pulls + ACKs "
+              f"byte-identical, {pulled} B through one channel "
+              f"({pulled / dt.DEFAULT_WINDOW_BYTES:.1f} windows); median push "
+              f"{out['push_ms_8MiB']} ms (8 MiB) {out['push_ms_64MiB']} ms "
+              f"(64 MiB), pull+ACK {out['pull_ack_ms_8MiB']} ms (8 MiB) "
+              f"{out['pull_ack_ms_64MiB']} ms (64 MiB); every endpoint, "
+              f"window and arena at rest {tag}")
+        return out
+    finally:
+        ch.close()
+
+
+def _kill(peer: dict):
+    """SIGKILL a peer and unlink the shared arena it can no longer
+    unlink; True when the segment was still there."""
+    peer["proc"].kill()
+    peer["proc"].wait()
+    peer["killed"] = True
+    path = os.path.join(SHM_DIR, peer["arena"])
+    try:
+        os.unlink(path)
+        return True
+    except FileNotFoundError:
+        return False
+
+
+def naming_failover(url: str, peers: list, tensors: dict, tag: str):
+    """8b: one peer killed; 12 pushes with max_retry=3 on the live two."""
+    ch = _device_channel(url, "rr", max_retry=3)
+    try:
+        client = TensorClient(ch)
+        act = tensors["act0"]
+        for i in range(N_PEERS):  # every connection up before the kill
+            cntl, _ = client.push(f"warm{i}", [act])
+            check(not cntl.failed(), f"8b warm: {cntl.error_text}")
+        victim = peers[0]
+        left = _kill(victim)
+        lat, retried = [], 0
+        for i in range(PUSHES_8B):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cntl, resp = client.push(f"fo{i}", [act])
+            lat.append(time.perf_counter() - t0)
+            check(not cntl.failed() and resp.ok,
+                  f"8b push {i} after the kill: {cntl.error_text}")
+            check(cntl.remote_side.port != victim["port"],
+                  "8b: a push was answered by the killed peer")
+            retried += cntl.retried_count
+        dead = [Socket.address(sid) for sid in ch._lb.server_ids()
+                if Socket.address(sid).remote_side.port == victim["port"]]
+        check(len(dead) == 1 and dead[0].failed(),
+              "8b: the killed peer's socket is not failed")
+        _client_at_rest(ch, "8b")
+        out = {"first_push_after_kill_ms": round(lat[0] * 1e3, 3),
+               "median_push_ms": _ms(lat), "retries": retried,
+               "arena_left_by_kill": left}
+        print(f"naming/failover: peer {victim['port']} SIGKILLed; "
+              f"{PUSHES_8B} pushes (8 MiB, max_retry=3) all served by the "
+              f"live two, {retried} retried; first push after the kill "
+              f"{out['first_push_after_kill_ms']} ms, median "
+              f"{out['median_push_ms']} ms; the dead socket failed, no client "
+              f"endpoint retains a send; its shared arena "
+              f"{'was left and is unlinked here' if left else 'was gone'} "
+              f"{tag}")
+        return out
+    finally:
+        ch.close()
+
+
+def naming_backup(live: list, ctl: dict, tensors: dict, tag: str):
+    """8c: the slow peer is rr's first pick for every push; the backup
+    request goes to the other."""
+    fast, slow = live  # rr's first pick on a fresh channel is the second
+    url = "list://" + ",".join(f"127.0.0.1:{p['port']}" for p in live)
+    ch = _device_channel(url, "rr", backup_request_ms=BACKUP_MS)
+    try:
+        client = TensorClient(ch)
+        for i in range(2):  # both connections up, no delay yet
+            cntl, _ = client.push(f"bwarm{i}", [tensors["act0"]])
+            check(not cntl.failed(), f"8c warm: {cntl.error_text}")
+        peer_control(ctl[slow["port"]], "delay", seconds=PUSH_DELAY_S)
+        counter = find_exposed("rpc_backup_requests")
+        backups0 = counter.get_value()
+        names = [n for n in tensors if n != "big"]
+        lat = []
+        for i in range(PUSHES_8C):
+            x = tensors[names[i % len(names)]]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cntl, resp = client.push(f"bk{i}", [x])
+            lat.append(time.perf_counter() - t0)
+            check(not cntl.failed() and resp.ok, f"8c push {i}: {cntl.error_text}")
+            check(cntl.has_backup_request
+                  and cntl.remote_side.port == fast["port"],
+                  f"8c push {i}: not served by the backup request")
+            check(lat[-1] < BACKUP_BOUND_S,
+                  f"8c push {i} took {lat[-1] * 1e3:.1f} ms")
+        counted = counter.get_value() - backups0
+        check(counted == PUSHES_8C, f"8c: rpc_backup_requests counted {counted}")
+        # each losing send stays held until the slow peer's late answer
+        t0 = time.perf_counter()
+        _wait(lambda: all(Socket.address(sid).app_state.retained_count == 0
+                          for sid in ch._lb.server_ids()),
+              PUSHES_8C * PUSH_DELAY_S + 10, "8c: the losing sends released")
+        released_s = time.perf_counter() - t0
+        peer_control(ctl[slow["port"]], "delay", seconds=0)
+        reader = TensorClient(ctl[slow["port"]])
+        for i in range(PUSHES_8C):
+            cntl, got = reader.pull(f"bk{i}")
+            check(not cntl.failed() and got is not None,
+                  f"8c pull bk{i} from the slow peer: {cntl.error_text}")
+            want = tensors[names[i % len(names)]]
+            check(torch.equal(u8(got[0]), u8(want.cpu())),
+                  f"8c: the slow peer's copy of bk{i} differs")
+        _client_at_rest(ch, "8c")
+        out = {"push_ms": [round(t * 1e3, 3) for t in lat],
+               "backup_requests": counted,
+               "losers_released_after_ms": round(released_s * 1e3, 3)}
+        print(f"naming/backup: peer {slow['port']} delays Push by "
+              f"{PUSH_DELAY_S * 1e3:.0f} ms; backup_request_ms={BACKUP_MS}: "
+              f"{PUSHES_8C} pushes (8 MiB) served by peer {fast['port']} in "
+              f"{out['push_ms']} ms (bound {BACKUP_BOUND_S * 1e3:.0f} ms), "
+              f"rpc_backup_requests +{counted}; the losing sends were held "
+              f"until the late answers and released "
+              f"{out['losers_released_after_ms']} ms after the last push; "
+              f"the slow peer's copies byte-identical {tag}")
+        return out
+    finally:
+        ch.close()
+
+
+def naming_selective(live: list, ctl: dict, tensors: dict, tag: str):
+    """8d: a SelectiveChannel over two single-address device channels; the
+    second peer is killed."""
+    keep, victim = live
+    subs = [_device_channel(f"127.0.0.1:{p['port']}") for p in live]
+    sc = SelectiveChannel(max_retry=2)
+    for ch in subs:
+        sc.add_channel(ch)
+    try:
+        client = TensorClient(sc)
+        act = tensors["act1"]
+        cntl, _ = client.push("sel-warm", [act])
+        check(not cntl.failed(), f"8d warm: {cntl.error_text}")
+        left = _kill(victim)
+        lat = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            cntl, resp = client.push(f"sel{i}", [act])
+            lat.append(time.perf_counter() - t0)
+            check(not cntl.failed() and resp.ok, f"8d push {i}: {cntl.error_text}")
+            check(cntl.remote_side.port == keep["port"],
+                  "8d: a push was answered by the killed peer")
+        check(sc._health.get(1, 0) >= 1, "8d: no call failed over")
+        contents = peer_control(ctl[keep["port"]], "state")["contents"]
+        check(all(contents.get(f"sel{i}", [""])[0].startswith("cuda")
+                  for i in range(4)), f"8d: not on the live card: {contents}")
+        cntl, got = client.pull("sel3", device=torch.device("cuda"))
+        check(not cntl.failed() and torch.equal(u8(got[0]), u8(act)),
+              "8d: pull through the SelectiveChannel")
+        for ch in subs:
+            _client_at_rest(ch, "8d")
+        out = {"push_ms": [round(t * 1e3, 3) for t in lat],
+               "arena_left_by_kill": left}
+        print(f"naming/selective: SelectiveChannel over 2 device channels, "
+              f"peer {victim['port']} SIGKILLed; 4 pushes (8 MiB) succeed in "
+              f"{out['push_ms']} ms and land on peer {keep['port']}'s card; "
+              f"a pull through it byte-identical {tag}")
+        return out
+    finally:
+        for ch in subs:
+            ch.close()
+
+
+def phase_naming(tag: str, gen):
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    flags.set_flag(PREFER_XFER, False)
+    procs = [spawn_peer() for _ in range(N_PEERS)]  # they start together
+    peers, ctl = [], {}
+    failed = True
+    try:
+        for proc in procs:
+            port, arena = await_peer(proc)
+            peers.append({"proc": proc, "port": port, "arena": arena,
+                          "killed": False})
+        for p in peers:
+            ctl[p["port"]] = Channel()
+            check(ctl[p["port"]].init(f"127.0.0.1:{p['port']}") == 0,
+                  "control channel init")
+            peer_control(ctl[p["port"]], "to_card", on=True)
+        url = "list://" + ",".join(f"127.0.0.1:{p['port']}" for p in peers)
+        tensors = {f"act{i}": torch.randn((BATCH, SEQ, BIG.d_model),
+                                          dtype=torch.bfloat16, device=dev,
+                                          generator=gen) for i in range(3)}
+        tensors["big"] = torch.randn((32 << 20,), dtype=torch.bfloat16,
+                                     device=dev, generator=gen)
+        result = {lb: naming_balanced(url, lb, tensors, ctl, tag)
+                  for lb in ("rr", "la")}
+        result["failover"] = naming_failover(url, peers, tensors, tag)
+        live = [p for p in peers if not p["killed"]]
+        result["backup"] = naming_backup(live, ctl, tensors, tag)
+        result["selective"] = naming_selective(live, ctl, tensors, tag)
+        result["seconds"] = round(time.perf_counter() - t_start, 1)
+        print(f"naming: phase took {result['seconds']} s {tag}")
+        print("channel " + json.dumps(result))
+        failed = False
+    finally:
+        for c in ctl.values():
+            c.close()
+        rcs = []
+        for i, proc in enumerate(procs):
+            if i < len(peers) and peers[i]["killed"]:
+                proc.wait()
+            else:
+                rcs.append(stop_peer(proc))
+    check(failed or all(rc == 0 for rc in rcs),
+          f"phase 8 peers exited with codes {rcs}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -741,6 +1167,7 @@ def main() -> int:
     phase_card_vs_cpu(tag)
     phase_cross_process(tag, gen)
     phase_train(tag)
+    phase_naming(tag, gen)
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "

@@ -10,7 +10,8 @@
   port device channel against a reference server (shm both ways, then the
   ACKs that free the spans).
 * The port and chip_smoke.py import no jax, ml_dtypes, protobuf or
-  brpc_tpu module.
+  brpc_tpu module; every module of the package is imported, the
+  client's modules by name.
 """
 import os
 import subprocess
@@ -250,6 +251,15 @@ def test_port_client_against_reference_server(monkeypatch):
         srv.stop()
 
 
+# the reference-grade client: each must be among the modules walked
+CLIENT_MODULES = [f"brpc_tpu_torch.{m}" for m in (
+    "butil.endpoint", "butil.flags", "butil.dbd", "bvar.variable",
+    "bvar.reducer", "bthread.timer_thread", "bthread.id", "rpc.socket",
+    "rpc.socket_map", "rpc.controller", "rpc.load_balancer",
+    "rpc.naming_service", "rpc.circuit_breaker", "rpc.cluster_recover",
+    "rpc.channel", "rpc.combo_channels", "rpc.tensor_service")]
+
+
 def test_port_imports_no_jax_protobuf_or_reference():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -261,8 +271,9 @@ def test_port_imports_no_jax_protobuf_or_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith("
         "('jax', 'ml_dtypes')) or m.split('.')[0] == 'brpc_tpu'"
         " or m.startswith('google.protobuf'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        f"missing = sorted(set({CLIENT_MODULES!r}) - set(sys.modules))\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

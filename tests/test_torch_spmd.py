@@ -4,13 +4,15 @@ the SPMD forward, the train step, the dry run and the gradient scale.
 The same inputs (numpy seeds, and for the dry run the reference's own
 init; the reference's parameters carried across by ``params_from_numpy``)
 go through the JAX functions on the 8-device CPU mesh and through the
-port in one 8-rank gloo world per module (the dry run spawns its own, as
-its entry point does). Every world has a deadline, so a hung collective
-fails its test. Tolerances are the reference tests' own:
+port in ONE 8-rank gloo world for the module, the dry run's rank function
+included; the world runs in the background while the JAX results are
+computed. The world has a deadline, so a hung collective fails the
+tests. Tolerances are the reference tests' own:
 2e-5 for ring attention, 3e-4 for fp32 logits; a train step's loss within
 1e-4 and every updated leaf within 1e-5 (lr 0.1 times gradients that agree
 to fp32 rounding).
 """
+import concurrent.futures
 import dataclasses
 import functools
 
@@ -31,7 +33,7 @@ from brpc_tpu_torch.entry import (
     _dryrun_config,
     _dryrun_shapes,
     _dryrun_specs,
-    dryrun_multichip,
+    _report_dryrun,
 )
 from brpc_tpu_torch.parallel import run_ranks
 from brpc_tpu_torch.parallel.world import tensors_to_numpy
@@ -137,12 +139,56 @@ def inputs():
     train = {name: (_ref_params(cfg, spec.pp),
                     _tokens(2, batch, seq, cfg["vocab"]))
              for name, (spec, cfg, _, batch, seq) in TRAIN.items()}
-    return {"ring": ring, "forward": fwd, "train": train}
+    # the dry run's own inputs: jax.random keys 0 and 1, as
+    # __graft_entry__ draws them
+    dryrun = []
+    for name, spec in zip(("dryrun-dp-tp-sp", "dryrun-dp-pp-ep"),
+                          DRYRUN_SPECS):
+        cfg = TRAIN[name][1]
+        batch, seq, _ = _dryrun_shapes(spec)
+        params = rmodel.init_params(RefConfig(**cfg), jax.random.PRNGKey(0),
+                                    pp_stages=spec.pp)
+        tokens = jax.random.randint(jax.random.PRNGKey(1), (batch, seq), 0,
+                                    cfg["vocab"], dtype=jnp.int32)
+        dryrun.append((name, params, tokens))
+    return {"ring": ring, "forward": fwd, "train": train, "dryrun": dryrun}
+
+
+def _reference(inputs):
+    """Every result of the JAX package the tests compare with."""
+    q, k, v = inputs["ring"]
+    mesh = Mesh(np.array(jax.devices()[:8]), ("sp",))
+    ring = shard_map(lambda q, k, v: ref_ring(q, k, v, "sp", causal=True),
+                     mesh=mesh, in_specs=(P(None, "sp"),) * 3,
+                     out_specs=P(None, "sp"), check=False)
+    out = {"ring": np.asarray(jax.jit(ring)(q, k, v)), "forward": {},
+           "train": {}, "dryrun": []}
+    for name, spec in FWD_MESHES.items():
+        params, tokens = inputs["forward"][name]
+        _, fwd = rmodel.make_spmd_forward(RefConfig(**CFG), _ref_spec(spec),
+                                          n_microbatches=1)
+        out["forward"][name] = np.asarray(fwd(params, jnp.asarray(tokens)))
+    for name in TRAIN:
+        params, tokens = inputs["train"][name]
+        tokens = jnp.asarray(tokens)
+        loss, new = _ref_step(name)(params, tokens, jnp.roll(tokens, -1, 1))
+        out["train"][name] = (float(loss), jax.tree.map(np.asarray, new))
+    for name, params, tokens in inputs["dryrun"]:
+        labels = jnp.roll(tokens, -1, axis=1)
+        step = _ref_step(name)
+        loss0, new = step(params, tokens, labels)
+        for _ in range(3):
+            loss3, new = step(new, tokens, labels)
+        out["dryrun"].append((float(loss0), float(loss3)))
+    return out
 
 
 @pytest.fixture(scope="module")
-def port(inputs):
-    """Every case in one 8-rank gloo world; per case, every rank's output."""
+def worlds(inputs):
+    """The port's side of every case in ONE 8-rank gloo world, the dry
+    run's rank function included, started in the background; the JAX
+    package's results are computed here while it runs. Returns (per
+    case, every rank's output; the reference's results)."""
     cases = [("ring", MeshSpec(sp=8), *inputs["ring"])]
     names = ["ring"]
     for name, spec in FWD_MESHES.items():
@@ -154,45 +200,46 @@ def port(inputs):
         cases.append(("train", spec, cfg, _np_params(params), tokens,
                       n_microbatches, LR))
         names.append(f"train/{name}")
-    ranks = run_ranks(torch_spmd_ranks.spmd_cases, 8, args=(cases,),
-                      device="cpu", deadline_s=WORLD_DEADLINE_S)
-    return {name: [r[i] for r in ranks] for i, name in enumerate(names)}
+    cases.append(("dryrun", DRYRUN_SPECS,
+                  [(_np_params(params), np.asarray(tokens))
+                   for _, params, tokens in inputs["dryrun"]]))
+    names.append("dryrun")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        world = pool.submit(run_ranks, torch_spmd_ranks.spmd_cases, 8,
+                            args=(cases,), device="cpu",
+                            deadline_s=WORLD_DEADLINE_S)
+        ref = _reference(inputs)
+        ranks = world.result()
+    return ({name: [r[i] for r in ranks] for i, name in enumerate(names)},
+            ref)
 
 
 @pytest.fixture(scope="module")
-def ref_train(inputs):
+def port(worlds):
+    """Per case, every rank's output."""
+    return worlds[0]
+
+
+@pytest.fixture(scope="module")
+def ref_train(worlds):
     """The reference's first step on each train mesh: (loss, new params)."""
-    out = {}
-    for name in TRAIN:
-        params, tokens = inputs["train"][name]
-        tokens = jnp.asarray(tokens)
-        loss, new = _ref_step(name)(params, tokens, jnp.roll(tokens, -1, 1))
-        out[name] = (float(loss), jax.tree.map(np.asarray, new))
-    return out
+    return worlds[1]["train"]
 
 
-def test_ring_attention_matches_local_and_reference(port, inputs):
+def test_ring_attention_matches_local_and_reference(port, inputs, worlds):
     q, k, v = inputs["ring"]
     got = pmodel.unshard(port["ring"], (None, "sp"), MeshSpec(sp=8))
     local = local_attention(*(torch.from_numpy(a) for a in (q, k, v)),
                             causal=True).numpy()
     np.testing.assert_allclose(got, local, atol=2e-5)
-
-    mesh = Mesh(np.array(jax.devices()[:8]), ("sp",))
-    ring = shard_map(lambda q, k, v: ref_ring(q, k, v, "sp", causal=True),
-                     mesh=mesh, in_specs=(P(None, "sp"),) * 3,
-                     out_specs=P(None, "sp"), check=False)
-    want = np.asarray(jax.jit(ring)(q, k, v))
-    np.testing.assert_allclose(got, want, atol=2e-5)
+    np.testing.assert_allclose(got, worlds[1]["ring"], atol=2e-5)
 
 
 @pytest.mark.parametrize("name", list(FWD_MESHES))
-def test_spmd_forward_matches_reference(port, inputs, name):
+def test_spmd_forward_matches_reference(port, inputs, worlds, name):
     spec = FWD_MESHES[name]
-    params, tokens = inputs["forward"][name]
-    _, fwd = rmodel.make_spmd_forward(RefConfig(**CFG), _ref_spec(spec),
-                                      n_microbatches=1)
-    want = np.asarray(fwd(params, jnp.asarray(tokens)))
+    _, tokens = inputs["forward"][name]
+    want = worlds[1]["forward"][name]
     got = pmodel.unshard(port[f"forward/{name}"], pmodel.LOGITS_SPEC, spec)
     assert got.shape == want.shape == tokens.shape + (CFG["vocab"],)
     np.testing.assert_allclose(got, want, atol=3e-4)
@@ -251,30 +298,16 @@ def test_gradient_scale_of_reference_and_port(port, inputs, ref_train, name):
             assert abs(scale - want) <= 1e-3 * want, (name, i, scale, want)
 
 
-def test_dryrun_matches_reference(capsys):
+def test_dryrun_matches_reference(port, worlds, capsys):
     """The dry run's loss0 and loss3 on the reference's own parameters and
-    tokens (jax.random keys 0 and 1, as __graft_entry__ draws them)."""
-    inputs, want = [], []
-    for name, spec in zip(("dryrun-dp-tp-sp", "dryrun-dp-pp-ep"),
-                          DRYRUN_SPECS):
-        cfg = TRAIN[name][1]
-        batch, seq, _ = _dryrun_shapes(spec)
-        params = rmodel.init_params(RefConfig(**cfg), jax.random.PRNGKey(0),
-                                    pp_stages=spec.pp)
-        tokens = jax.random.randint(jax.random.PRNGKey(1), (batch, seq), 0,
-                                    cfg["vocab"], dtype=jnp.int32)
-        labels = jnp.roll(tokens, -1, axis=1)
-        step = _ref_step(name)
-        loss0, new = step(params, tokens, labels)
-        for _ in range(3):
-            loss3, new = step(new, tokens, labels)
-        want.append((float(loss0), float(loss3)))
-        inputs.append((_np_params(params), np.asarray(tokens)))
-    got = dryrun_multichip(8, device="cpu", inputs=inputs,
-                           deadline_s=WORLD_DEADLINE_S)
+    tokens (jax.random keys 0 and 1, as __graft_entry__ draws them): the
+    dry run's rank function ran in the shared world; its report is
+    dryrun_multichip's."""
+    got = _report_dryrun(port["dryrun"][0])
     printed = capsys.readouterr().out
     assert printed.count("dryrun_multichip ok: mesh=") == 2
-    for r, (loss0, loss3), spec in zip(got, want, DRYRUN_SPECS):
+    for r, (loss0, loss3), spec in zip(got, worlds[1]["dryrun"],
+                                       DRYRUN_SPECS):
         assert r["mesh"] == spec.shape
         assert abs(r["loss0"] - loss0) <= 1e-4, (r, loss0)
         assert abs(r["loss3"] - loss3) <= 1e-4, (r, loss3)

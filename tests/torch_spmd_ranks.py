@@ -14,6 +14,7 @@ import time
 
 import torch
 
+from brpc_tpu_torch.entry import _dryrun_rank
 from brpc_tpu_torch.parallel import MeshChannel, RankMesh, collectives
 from brpc_tpu_torch.parallel.world import tensors_to_numpy
 from brpc_tpu_torch.tensor.config import MeshSpec, ModelConfig
@@ -75,11 +76,15 @@ def collective_cases(device, inputs):
 def spmd_cases(device, cases):
     """Every case of tests/test_torch_spmd.py, one mesh per case:
     ("ring", spec, q, k, v), ("forward", spec, cfg kwargs, params,
-    tokens) and ("train", spec, cfg kwargs, params, tokens, microbatches,
-    lr). Returns this rank's outputs, one per case."""
+    tokens), ("train", spec, cfg kwargs, params, tokens, microbatches,
+    lr) and ("dryrun", specs, inputs): the dry run's rank function on
+    its own meshes. Returns this rank's outputs, one per case."""
     meshes = {}
     out = []
     for kind, spec, *rest in cases:
+        if kind == "dryrun":
+            out.append(_dryrun_rank(device, spec, rest[0]))
+            continue
         if spec not in meshes:
             meshes[spec] = RankMesh(spec)
         mesh = meshes[spec]
