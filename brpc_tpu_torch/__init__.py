@@ -9,8 +9,10 @@ to find:
   SPMD forward and train step over the five mesh axes;
 * ``parallel`` — the collective verbs, ``MeshChannel``, the rank mesh and
   the spawn harness, on torch.distributed;
-* ``rpc`` — the tensor lane: the device handshake, the block pool, the
-  TensorStore service, and a small server and channel;
+* ``rpc`` — the tensor lane (the device handshake, the block pool, the
+  TensorStore service), the client and the server;
+* ``bthread`` and ``bvar`` — the task-control workers, butex, timers and
+  call ids; named metrics, windows and latency recorders;
 * ``entry`` — ``entry(device=None)`` and ``dryrun_multichip``, the
   counterparts of ``__graft_entry__``'s.
 

@@ -4,12 +4,14 @@ Port of the parts of brpc_tpu/butil/iobuf.py that the tensor lane uses.
 Blocks are host bytes, or DEVICE blocks that hold a ``torch.Tensor``
 (the counterpart of ``Block.device_block``): a tensor rides the chain
 untouched and is copied to the host once, when a wire boundary reads its
-bytes. Left out: the thread-local block cache, user blocks with deleters
-and the read-arena seam.
+bytes. A socket reads into one (``append_from_socket``) and writes from
+one (``cut_into_socket``) without blocking. Left out: the thread-local
+block cache, user blocks with deleters and the read-arena seam.
 """
 from __future__ import annotations
 
 from collections import deque
+from itertools import islice
 from typing import Iterable, Union
 
 import torch
@@ -77,6 +79,9 @@ class IOBuf:
 
     def __len__(self) -> int:
         return self._length
+
+    def empty(self) -> bool:
+        return self._length == 0
 
     def append(self, data: Union[bytes, bytearray, memoryview, str, "IOBuf"]):
         """Append bytes (a ``bytes`` object is kept as is, other buffers
@@ -154,6 +159,22 @@ class IOBuf:
 
     def to_bytes(self) -> bytes:
         return bytes(self.copy_to_bytes())
+
+    def append_from_socket(self, fd, max_bytes: int) -> int:
+        """One ``recv`` of at most max_bytes appended; 0 at EOF. A socket
+        with nothing to read raises BlockingIOError."""
+        data = fd.recv(max_bytes)
+        if data:
+            self._append_ref(BlockRef(Block(data), 0, len(data)))
+        return len(data)
+
+    def cut_into_socket(self, fd, max_views: int = 64) -> int:
+        """Send from the front with one ``sendmsg`` and drop what was sent;
+        returns the bytes sent. A full socket raises BlockingIOError."""
+        views = [r.view() for r in islice(self._refs, max_views)]
+        n = fd.sendmsg(views) if views else 0
+        self.pop_front(n)
+        return n
 
     def iter_views(self) -> Iterable[memoryview]:
         for r in self._refs:

@@ -1,8 +1,10 @@
 """Reducers — counters whose writes touch only the writing thread's cell.
 
-Copy of brpc_tpu/bvar/reducer.py's Reducer, Adder and Maxer: each writing
-thread owns a cell, and a read combines every cell with the reducer's
-operation.
+Copy of brpc_tpu/bvar/reducer.py: each writing thread owns a cell, and a
+read combines every cell with the reducer's operation. Adder, Maxer and
+IntRecorder (an average kept as a (sum, num) pair). Windows difference
+the samples of an invertible reducer (Adder, IntRecorder) and combine
+those of the others with ``series_op``.
 """
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ class Reducer(Variable):
     """``op`` is commutative and associative; ``identity`` its neutral
     value."""
 
-    def __init__(self, op: Callable, identity, name: Optional[str] = None):
+    def __init__(self, op: Callable, identity, name: Optional[str] = None,
+                 series_op: Optional[Callable] = None):
         self._op = op
         self._identity = identity
+        self._series_op = series_op or op
         self._tls = threading.local()
         self._cells: List[_Cell] = []
         self._cells_lock = threading.Lock()
@@ -53,16 +57,67 @@ class Reducer(Variable):
                 result = self._op(result, cell.value)
         return result
 
+    @property
+    def series_op(self):
+        return self._series_op
+
 
 class Adder(Reducer):
+    """Sums; negative updates allowed."""
+
+    invertible = True  # a window's value is now - then
+
     def __init__(self, name: Optional[str] = None):
         super().__init__(lambda a, b: a + b, 0, name)
 
 
 class Maxer(Reducer):
+    invertible = False
+
     def __init__(self, name: Optional[str] = None):
         super().__init__(max, float("-inf"), name)
 
     def get_value(self):
         v = super().get_value()
         return 0 if v == float("-inf") else v
+
+
+class _Stat:
+    __slots__ = ("sum", "num")
+
+    def __init__(self, sum_=0, num=0):
+        self.sum = sum_
+        self.num = num
+
+    def __add__(self, other):
+        return _Stat(self.sum + other.sum, self.num + other.num)
+
+    def __sub__(self, other):
+        return _Stat(self.sum - other.sum, self.num - other.num)
+
+    @property
+    def average(self) -> float:
+        return self.sum / self.num if self.num else 0.0
+
+
+class IntRecorder(Reducer):
+    """The average of the samples: a (sum, num) value whose ``average``
+    is read; windows difference it."""
+
+    invertible = True
+
+    def __init__(self, name: Optional[str] = None):
+        super().__init__(lambda a, b: a + b, _Stat(), name)
+
+    def update(self, sample: float):
+        cell = self._cell()
+        cell.value = cell.value + _Stat(sample, 1)
+
+    __lshift__ = update
+
+    def average(self) -> float:
+        return self.get_value().average
+
+    def describe(self) -> str:
+        s = self.get_value()
+        return f"avg={s.average:.3f} num={s.num}"

@@ -1,13 +1,15 @@
 """Variable — a named, exposable metric and the global registry.
 
-Copy of the part of brpc_tpu/bvar/variable.py the client uses: a metric
-exposed under a unique name and found by it. Hiding, bulk dumps, the
-Prometheus text and the status variables come with the reference-grade
-server."""
+Copy of the part of brpc_tpu/bvar/variable.py the client and the server
+use: a metric exposed under a unique name, found by it, hidden, and
+dumped in bulk (``dump_exposed``, the body of a vars page);
+``PassiveStatus`` computes its value with a callback. The Prometheus
+text and the set-by-hand status variable come with the console.
+"""
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 _registry: "Dict[str, Variable]" = {}
 _registry_lock = threading.Lock()
@@ -33,6 +35,14 @@ class Variable:
             self._name = name
             return True
 
+    def hide(self) -> bool:
+        with _registry_lock:
+            if self._name and _registry.get(self._name) is self:
+                del _registry[self._name]
+                self._name = None
+                return True
+            return False
+
     @property
     def name(self) -> Optional[str]:
         return self._name
@@ -40,7 +50,38 @@ class Variable:
     def get_value(self):
         raise NotImplementedError
 
+    def describe(self) -> str:
+        return str(self.get_value())
+
+
+class PassiveStatus(Variable):
+    """A value computed by a callback when read."""
+
+    def __init__(self, callback: Callable[[], object],
+                 name: Optional[str] = None):
+        self._callback = callback
+        super().__init__(name)
+
+    def get_value(self):
+        return self._callback()
+
 
 def find_exposed(name: str) -> Optional[Variable]:
     with _registry_lock:
         return _registry.get(name)
+
+
+def dump_exposed(filter_fn: Optional[Callable[[str], bool]] = None
+                 ) -> List[Tuple[str, object]]:
+    """(name, value) of every exposed variable, sorted by name."""
+    with _registry_lock:
+        items = list(_registry.items())
+    out = []
+    for name, var in sorted(items):
+        if filter_fn and not filter_fn(name):
+            continue
+        try:
+            out.append((name, var.get_value()))
+        except Exception as e:  # a broken callback must not break the dump
+            out.append((name, f"<error: {e}>"))
+    return out

@@ -1,7 +1,9 @@
 """rpc — the client and server of the port: the reference-grade channel
 (naming services, load balancers, retries, backup requests, the circuit
-breaker and the combo channels), a small server, the tpu_std framing, the
-device transport and the TensorStore service."""
+breaker and the combo channels), the reference-grade server (acceptor,
+input messenger and event dispatcher, method status and concurrency
+limiters), the protocol registry with the tpu_std framing, the device
+transport and the TensorStore service."""
 
 from brpc_tpu_torch.rpc.channel import Channel, ChannelOptions  # noqa: F401
 from brpc_tpu_torch.rpc.combo_channels import (  # noqa: F401

@@ -20,6 +20,10 @@ first has not answered in time. With ``enable_circuit_breaker`` every
 call's end feeds the connection's breaker, which fails the socket when
 the error rate crosses its threshold.
 
+Responses are read by the process's client InputMessenger
+(``get_client_messenger``) in task-control workers, as a server reads
+requests: no thread per connection.
+
 With ``use_device_transport`` every connection runs the device handshake
 before its first request, a naming service's sockets included (the hook
 is attached before their first connect), and the channel keeps the
@@ -43,6 +47,8 @@ from brpc_tpu_torch.butil.endpoint import EndPoint
 from brpc_tpu_torch.device import DeviceLike
 from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.controller import Controller
+from brpc_tpu_torch.rpc.input_messenger import InputMessenger
+from brpc_tpu_torch.rpc.protocol import globally_initialize, list_server_protocols
 from brpc_tpu_torch.rpc.socket import Socket
 
 
@@ -63,6 +69,23 @@ class ChannelOptions:
     use_device_transport: bool = False
     # the card unless the caller asks for the CPU
     device: DeviceLike = None
+
+
+_client_messenger: Optional[InputMessenger] = None
+_client_messenger_lock = threading.Lock()
+
+
+def get_client_messenger() -> InputMessenger:
+    """The InputMessenger of every client connection in the process: the
+    responses of a connection are read and processed by task-control
+    workers, as the server's requests are."""
+    global _client_messenger
+    if _client_messenger is None:
+        with _client_messenger_lock:
+            if _client_messenger is None:
+                globally_initialize()
+                _client_messenger = InputMessenger(list_server_protocols())
+    return _client_messenger
 
 
 def _start_call(channel, method_full_name: str, cntl: Controller, request,
@@ -175,6 +198,7 @@ class Channel:
         factory = self._app_connect_factory()
         sid = Socket.create(
             remote_side=ep,
+            on_edge_triggered_events=get_client_messenger().on_new_messages,
             app_connect=factory() if factory is not None else None)
         sock = Socket.address(sid)
         sock.node_sid = node_sid or sid

@@ -100,6 +100,8 @@ class Controller:
         self.server = None
         self.service_name = ""
         self.method_name = ""
+        self.server_start_time = 0.0  # time.monotonic() at arrival
+        self.session_local_data = None  # lent by the server's pool
         self._server_socket = None
         # tensor lane: outbound tensors on the client; the inbound and
         # outbound RpcMeta on the server; the response's RpcMeta on the client

@@ -278,6 +278,9 @@ class NamingServiceThread:
         nodes = self._ns.get_servers(self._path)
         if self._filter is not None:
             nodes = [n for n in nodes if self._filter(n)]
+        from brpc_tpu_torch.rpc.channel import get_client_messenger
+
+        messenger = get_client_messenger()
         hc = (self._options.health_check_interval_s
               if self._options is not None else -1)
         new_eps = {}
@@ -288,8 +291,10 @@ class NamingServiceThread:
                 return
             for ep, (weight, tag) in new_eps.items():
                 if ep not in self._sockets:
-                    sid = Socket.create(remote_side=ep,
-                                        health_check_interval_s=hc)
+                    sid = Socket.create(
+                        remote_side=ep,
+                        on_edge_triggered_events=messenger.on_new_messages,
+                        health_check_interval_s=hc)
                     self._sockets[ep] = sid
                     self._lb.add_server(sid, weight, tag)
             for ep in [e for e in self._sockets if e not in new_eps]:

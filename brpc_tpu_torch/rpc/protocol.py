@@ -1,17 +1,35 @@
-"""Parse results and the parsed-message base shared by the two framings
-this port speaks on one connection (``TDEV`` handshake, ``TRPC`` frames).
+"""Protocol — the registry of wire formats a connection may speak.
 
-The parts of brpc_tpu/rpc/protocol.py the tensor lane reads; the port has
-no protocol registry: its server tries the two parsers in turn.
+Port of brpc_tpu/rpc/protocol.py: a protocol is a bundle of parse /
+process_request / process_response functions registered
+under a ProtocolType. A server port tries every server-side protocol on
+the first bytes of a connection, in a fixed priority order, and keeps the
+one that matched; ``process_inline`` marks a protocol whose messages run
+at once in the reading task, in wire order (the device handshake must be
+done before the first request of its connection runs).
+
+The port registers two protocols: ``tpu_std`` (rpc/tpu_std_protocol.py)
+and ``device_handshake`` (rpc/tensor_service.py).
 """
 from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from enum import IntEnum
+from typing import Callable, Dict, List, Optional
+
+
+class ProtocolType(IntEnum):
+    UNKNOWN = 0
+    TPU_STD = 1  # framed pb-meta protocol (baidu_std's role)
+    TENSOR = 9  # the device handshake of the tensor lane
 
 
 class ParseResult:
     OK = 0
-    NOT_ENOUGH_DATA = 1
-    TRY_OTHERS = 2
-    ERROR = 3
+    NOT_ENOUGH_DATA = 1  # keep reading
+    TRY_OTHERS = 2  # not this protocol
+    ERROR = 3  # corrupt stream: close the connection
 
     __slots__ = ("status", "message")
 
@@ -37,11 +55,82 @@ class ParseResult:
 
 
 class InputMessageBase:
-    """A parsed message; the reader fills ``socket`` and ``arg`` (the
-    server) before processing it."""
+    """A cut message; the messenger fills ``socket``, ``protocol`` and
+    ``arg`` (the server on the server side) before processing it."""
 
-    __slots__ = ("socket", "arg")
+    __slots__ = ("socket", "protocol", "arg")
 
     def __init__(self):
         self.socket = None
+        self.protocol = None
         self.arg = None
+
+
+@dataclass
+class Protocol:
+    """The function bundle of one wire format."""
+
+    name: str
+    type: ProtocolType
+    # parse(portal, socket, read_eof, arg) -> ParseResult
+    parse: Callable = None
+    process_request: Callable = None  # server
+    process_response: Callable = None  # client
+    support_client: bool = True
+    support_server: bool = True
+    # True: processed in the reading task, before the rest of the read is
+    # cut (must not block for long)
+    process_inline: bool = False
+
+
+_protocols: Dict[ProtocolType, Protocol] = {}
+_lock = threading.Lock()
+_init_lock = threading.RLock()
+_globally_initialized = False
+
+
+def register_protocol(protocol: Protocol):
+    with _lock:
+        if protocol.type in _protocols:
+            raise ValueError(f"protocol {protocol.type} already registered")
+        _protocols[protocol.type] = protocol
+
+
+def find_protocol(ptype: ProtocolType) -> Optional[Protocol]:
+    return _protocols.get(ptype)
+
+
+def find_protocol_by_name(name: str) -> Optional[Protocol]:
+    for p in _protocols.values():
+        if p.name == name:
+            return p
+    return None
+
+
+# the order a server port tries the protocols in, whatever the import order
+_PARSE_PRIORITY = {
+    ProtocolType.TPU_STD: 0,
+    ProtocolType.TENSOR: 2,
+}
+
+
+def list_server_protocols() -> List[Protocol]:
+    """Protocols a server port tries, in fixed priority order."""
+    ps = [p for p in _protocols.values() if p.support_server and p.parse]
+    ps.sort(key=lambda p: _PARSE_PRIORITY.get(p.type, 99))
+    return ps
+
+
+def globally_initialize():
+    """Register every protocol once. The done flag flips only after every
+    registering import completed, so a concurrent caller never sees half
+    a registry."""
+    global _globally_initialized
+    if _globally_initialized:
+        return
+    with _init_lock:
+        if _globally_initialized:
+            return
+        from brpc_tpu_torch.rpc import tensor_service  # noqa: F401
+        from brpc_tpu_torch.rpc import tpu_std_protocol  # noqa: F401
+        _globally_initialized = True

@@ -1,28 +1,60 @@
 """Server — serves Services over the tensor lane's two framings.
 
-The reference's Server (brpc_tpu/rpc/server.py) stands on the acceptor,
-the event dispatcher, the input messenger and bthread. This one is
-deliberately small: one accept thread, and one reader thread per
-connection that parses the ``TDEV`` handshake and ``TRPC`` frames and
-dispatches each inline. Builtin services, the native runtime, limiters
-and graceful lame-duck draining come with the reference-grade server.
+Port of the Python path of brpc_tpu/rpc/server.py. ``add_service`` builds
+the (service, method) map with a MethodStatus per method, whose limiter
+comes from ``method_max_concurrency`` or ``max_concurrency``. ``start``
+registers the protocols, sizes the process's task control
+(``num_threads`` workers, the first caller decides), listens, builds one
+InputMessenger over the enabled server protocols (``tpu_std`` and the
+``TDEV`` device handshake), starts the Acceptor on the event dispatcher
+and exposes the process variables. Requests run in task-control workers:
+no thread is started per connection. ``stop`` stops accepting and fails
+every connection, as the reference's Python path does (no drain).
+
+With ``device`` on the card, ``start`` makes the device identity once
+(CUDA's start, the send arena's page-locking, the transfer server), so
+that no handshake pays for it in the task that reads its connection.
+
+Left out: authentication and TLS, the other protocols' services,
+restful mappings, builtin services and the console (they come with the
+HTTP protocol), the native runtime and its workers. ``idle_timeout_s``
+and ``server_info_name`` are read nowhere in the reference and are not
+ported.
 """
 from __future__ import annotations
 
 import socket as pysocket
+import sys
 import threading
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Tuple
 
-from brpc_tpu_torch.butil.endpoint import EndPoint  # noqa: F401 (old home)
-from brpc_tpu_torch.device import DeviceLike
-from brpc_tpu_torch.rpc import tpu_std_protocol
+from brpc_tpu_torch import bvar
+from brpc_tpu_torch.bthread import get_task_control
+from brpc_tpu_torch.butil.endpoint import EndPoint
+from brpc_tpu_torch.device import DeviceLike, resolve_device
+from brpc_tpu_torch.rpc.acceptor import Acceptor
+from brpc_tpu_torch.rpc.concurrency_limiter import create_concurrency_limiter
+from brpc_tpu_torch.rpc.data_pools import SimpleDataPool
+from brpc_tpu_torch.rpc.input_messenger import InputMessenger
+from brpc_tpu_torch.rpc.method_status import MethodStatus
+from brpc_tpu_torch.rpc.protocol import globally_initialize, list_server_protocols
 from brpc_tpu_torch.rpc.service import MethodInfo, Service
-from brpc_tpu_torch.rpc.socket import Socket
 
 
 @dataclass
 class ServerOptions:
+    """The reference's ServerOptions that its Python path honours and this
+    port serves, with their defaults, plus the device."""
+
+    num_threads: int = 8
+    max_concurrency: int = 0  # 0: unlimited; else a limiter per method
+    method_max_concurrency: Dict[str, object] = field(default_factory=dict)
+    interceptor: Optional[Callable] = None  # (cntl) -> (ok, code, text)
+    session_local_data_factory: Optional[object] = None  # a DataFactory
+    enabled_protocols: Tuple[str, ...] = ()  # empty: every registered one
+    # SIGTERM becomes stop() + join() + exit(0)
+    graceful_quit_on_sigterm: bool = False
     # The identity the server half of the device handshake announces: the
     # card unless the caller asks for the CPU.
     device: DeviceLike = None
@@ -32,23 +64,36 @@ class Server:
     def __init__(self, options: Optional[ServerOptions] = None):
         self.options = options or ServerOptions()
         self._services: Dict[str, Service] = {}
-        self._methods: Dict[Tuple[str, str], Tuple[Service, MethodInfo]] = {}
-        self._lock = threading.Lock()
-        self._listen: Optional[pysocket.socket] = None
-        self._threads: List[threading.Thread] = []
-        self._conns: List[Socket] = []
-        self._started = False
+        # (service, method) -> (service object, MethodInfo, MethodStatus)
+        self._methods: Dict[Tuple[str, str],
+                            Tuple[Service, MethodInfo, MethodStatus]] = {}
+        self._acceptor: Optional[Acceptor] = None
+        self._messenger: Optional[InputMessenger] = None
         self.listen_endpoint: Optional[EndPoint] = None
+        self._started = False
+        self._stopped_event = threading.Event()
+        self.interceptor = self.options.interceptor
+        self.session_pool = None
+        if self.options.session_local_data_factory is not None:
+            self.session_pool = SimpleDataPool(
+                self.options.session_local_data_factory)
+        self._lock = threading.Lock()
 
     # -- service registry --------------------------------------------------
     def add_service(self, service: Service) -> int:
         name = service.service_name()
         with self._lock:
             if self._started or name in self._services:
-                return -1
+                return -1  # services are added before start
             self._services[name] = service
             for mname, minfo in service.methods().items():
-                self._methods[(name, mname)] = (service, minfo)
+                full = f"{name}.{mname}"
+                spec = self.options.method_max_concurrency.get(full, 0)
+                if not spec:
+                    spec = self.options.max_concurrency
+                limiter = create_concurrency_limiter(spec) if spec else None
+                self._methods[(name, mname)] = (
+                    service, minfo, MethodStatus(full, limiter))
         return 0
 
     def find_service(self, name: str) -> Optional[Service]:
@@ -57,16 +102,37 @@ class Server:
     def find_method(self, service_name: str, method_name: str):
         return self._methods.get((service_name, method_name))
 
+    def method_statuses(self) -> Dict[str, MethodStatus]:
+        return {f"{k[0]}.{k[1]}": v[2] for k, v in self._methods.items()}
+
+    @property
+    def service_count(self) -> int:
+        return len(self._services)
+
     # -- lifecycle ---------------------------------------------------------
     def start(self, address="127.0.0.1:0") -> int:
-        """Listen on 'ip:port' or ':port' (port 0: any free port); 0 on
-        success."""
-        address = str(address)
-        ep = EndPoint.parse("127.0.0.1" + address if address.startswith(":")
-                            else address)
+        """Listen on 'ip:port', ':port', an EndPoint or a port number (0:
+        any free port); 0 on success."""
+        globally_initialize()
+        if isinstance(address, int):
+            ep = EndPoint("127.0.0.1", address)
+        elif isinstance(address, EndPoint):
+            ep = address
+        else:
+            address = str(address)
+            ep = EndPoint.parse("127.0.0.1" + address
+                                if address.startswith(":") else address)
+        device = resolve_device(self.options.device)
+        if device.type == "cuda":
+            # CUDA's start, the send arena's page-locking and the transfer
+            # server's start happen here, not in the first handshake
+            from brpc_tpu_torch.rpc.device_transport import local_device_info
+
+            local_device_info(device)
         with self._lock:
             if self._started:
                 return -1
+            get_task_control(self.options.num_threads).init()
             lfd = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_STREAM)
             lfd.setsockopt(pysocket.SOL_SOCKET, pysocket.SO_REUSEADDR, 1)
             try:
@@ -74,65 +140,62 @@ class Server:
             except OSError:
                 lfd.close()
                 return -1
-            lfd.listen(128)
-            self._listen = lfd
+            lfd.listen(1024)
             self.listen_endpoint = EndPoint(ep.ip, lfd.getsockname()[1])
+            protocols = list_server_protocols()
+            if self.options.enabled_protocols:
+                protocols = [p for p in protocols
+                             if p.name in self.options.enabled_protocols]
+            self._messenger = InputMessenger(protocols, arg=self)
+            self._acceptor = Acceptor(self._messenger)
+            self._acceptor.start_accept(lfd)
             self._started = True
-            self._spawn(self._accept_loop, "tensor-server-accept")
+            self._stopped_event.clear()
+            if self.options.graceful_quit_on_sigterm:
+                self._install_sigterm_handler()
+        bvar.expose_default_variables()
         return 0
 
-    def _spawn(self, target, name, *args):
-        t = threading.Thread(target=target, args=args, name=name, daemon=True)
-        self._threads.append(t)
-        t.start()
+    def _install_sigterm_handler(self):
+        """SIGTERM runs stop() and join(), then exits 0. Installable from
+        the main thread only; elsewhere the embedder routes signals."""
+        import signal
 
-    def _accept_loop(self):
-        from brpc_tpu_torch.rpc.tensor_service import (
-            _parse_handshake,
-            _process_handshake,
-        )
+        if threading.current_thread() is not threading.main_thread():
+            return
 
-        parsers = ((_parse_handshake, _process_handshake),
-                   (tpu_std_protocol.parse, tpu_std_protocol.process_request))
-        while True:
-            try:
-                conn, addr = self._listen.accept()
-            except OSError:
-                return  # listening socket closed by stop()
-            sock = Socket(conn, EndPoint(addr[0], addr[1]))
-            with self._lock:
-                if not self._started:
-                    sock.close()
-                    return
-                self._conns.append(sock)
-                self._threads = [t for t in self._threads if t.is_alive()]
-            self._spawn(self._serve, "tensor-server-conn", sock, parsers)
+        def _on_sigterm(signum, frame):
+            self.stop()
+            self.join(5.0)
+            sys.exit(0)
 
-    def _serve(self, sock: Socket, parsers):
         try:
-            sock.read_loop(parsers, self)
-        finally:
-            sock.close()  # releases what the connection's endpoint retains
-            with self._lock:
-                if sock in self._conns:
-                    self._conns.remove(sock)
+            signal.signal(signal.SIGTERM, _on_sigterm)
+        except (ValueError, OSError):
+            pass
 
-    def stop(self, timeout_s: float = 5.0) -> int:
-        """Close the listener and every connection, then wait for the
-        threads to end."""
+    def stop(self) -> int:
+        """Stop accepting and fail every connection: their calls in flight
+        end with a socket error on the client. -1 when not running."""
         with self._lock:
             if not self._started:
                 return -1
             self._started = False
-            conns, self._conns = self._conns, []
-            threads = list(self._threads)
-        try:
-            self._listen.shutdown(pysocket.SHUT_RDWR)
-        except OSError:
-            pass  # never connected: close() alone wakes accept()
-        self._listen.close()
-        for sock in conns:
-            sock.close()
-        for t in threads:
-            t.join(timeout_s)
+        if self._acceptor is not None:
+            self._acceptor.stop_accept()
+        self._stopped_event.set()
         return 0
+
+    def join(self, timeout: Optional[float] = None) -> int:
+        self._stopped_event.wait(timeout)
+        return 0
+
+    @property
+    def is_running(self) -> bool:
+        return self._started
+
+    def connection_count(self) -> int:
+        return self._acceptor.connection_count() if self._acceptor else 0
+
+    def list_connections(self):
+        return self._acceptor.list_connections() if self._acceptor else []

@@ -1,43 +1,54 @@
 """Socket — one TCP connection, as the client and the server see it.
 
-Port of brpc_tpu/rpc/socket.py without its event dispatcher, input
-messenger and bthread writer tasks: here one OS thread per connection
-reads and processes messages inline, and a writer sends a whole message
-under the connection's write lock. What the reference's client fabric
-needs is kept:
+Port of brpc_tpu/rpc/socket.py. A connected socket is non-blocking and
+registered with an event dispatcher; no thread belongs to it:
 
+* input: a readable edge starts one input task (``start_input_event``)
+  that runs the socket's handler, an InputMessenger's
+  ``on_new_messages``, over ``read_portal``; read events are suspended
+  while it runs and resumed after, so one task at a time reads a
+  connection;
+* output: any thread queues a whole message (``write``); one of them
+  becomes the writer, writes what the socket takes at once on its own
+  thread, and hands the rest to a KeepWrite task that waits for the
+  dispatcher's writable wakeup, so a 64 MiB frame leaves without
+  blocking a caller;
 * versioned socket ids: ``Socket.create`` registers a socket and returns
   its id, ``Socket.address(sid)`` resolves it, or None once the socket is
   recycled, so a stale id never reaches a newer connection;
 * ``set_failed`` closes the connection and fails every RPC attempt that
   registered its call id on it (``write(..., id_wait=cid)``), so the
-  controller retries or ends the RPC;
-* health-check revival: a failed socket with ``health_check_interval_s
-  > 0`` probes its peer on the timer thread and reconnects when it
-  answers;
+  controller retries or ends the RPC. The socket never holds its own
+  locks while it errors a call id: the controller may retry inline;
+* health-check revival: a failed client socket with
+  ``health_check_interval_s > 0`` probes its peer on the timer thread and
+  reconnects when it answers;
 * lame duck: a socket marked draining finishes its calls but is not
   chosen for new ones;
-* the ``app_connect`` seam (the device handshake runs there before the
-  reader starts) and ``app_state``, which holds the connection's
-  DeviceEndpoint. A connection that fails or closes releases every send
-  its endpoint still retains: no ACK can reach it any more.
+* the ``app_connect`` seam (the device handshake runs there, on the
+  blocking socket, before it joins the dispatcher) and ``app_state``,
+  which holds the connection's DeviceEndpoint. A connection that fails
+  or closes releases every send its endpoint still retains: no ACK can
+  reach it any more.
 """
 from __future__ import annotations
 
 import socket as pysocket
-import sys
 import threading
-import traceback
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
 
+from brpc_tpu_torch import bvar
 from brpc_tpu_torch.bthread import id as bthread_id
-from brpc_tpu_torch.bthread import timer_add
+from brpc_tpu_torch.bthread import start_background, timer_add
 from brpc_tpu_torch.butil.endpoint import EndPoint
 from brpc_tpu_torch.butil.iobuf import IOBuf
 from brpc_tpu_torch.rpc import errors
-from brpc_tpu_torch.rpc.protocol import ParseResult
+from brpc_tpu_torch.rpc.event_dispatcher import get_global_dispatcher
 
-READ_CHUNK = 1 << 20
+_in_bytes = bvar.Adder("socket_in_bytes")
+_out_bytes = bvar.Adder("socket_out_bytes")
+_conn_count = bvar.Adder("socket_connection_count")
 
 
 class _Registry:
@@ -94,15 +105,17 @@ def _tcp_probe(sock: "Socket") -> bool:
 
 class Socket:
     def __init__(self, fd: Optional[pysocket.socket] = None,
-                 remote_side=None):
-        """A server passes its accepted connection; a client socket is
-        made by ``Socket.create`` and dials on ``connect``."""
-        if fd is not None:
-            fd.setsockopt(pysocket.IPPROTO_TCP, pysocket.TCP_NODELAY, 1)
+                 remote_side: Optional[EndPoint] = None):
+        """Made by ``Socket.create``: with ``fd`` an accepted connection
+        (or a listener), without it a client socket that dials on
+        ``connect``."""
         self._fd = fd
         self._sid = 0
         self.node_sid = 0  # the balancer's node this connection serves
         self.remote_side = remote_side
+        self.on_edge_triggered_events: Optional[Callable[["Socket"], None]] = None
+        self.read_portal = IOBuf()
+        self.matched_protocol = None  # kept by the InputMessenger
         self.app_state = None  # the connection's DeviceEndpoint, if any
         self.app_connect: Optional[Callable[["Socket"], int]] = None
         self.connection_type = "single"
@@ -112,26 +125,43 @@ class Socket:
         self.error_text = ""
         self._failed = False
         self._conn_ready = fd is not None
+        self._accepted = fd is not None  # server side: no dial, no revival
         self._recycled = False
         self._hc_running = False
-        self._state_lock = threading.Lock()  # failure, ids, abandoned sends
-        self._write_lock = threading.Lock()
+        # failure, the call ids, abandoned sends and the write queue
+        self._state_lock = threading.Lock()
         self._connect_lock = threading.Lock()
         self._inflight_ids = set()
         # attempt call id -> (endpoint, seq) of a send whose RPC ended
         # without it: released by its late response or the socket's end
         self._abandoned: Dict[int, Tuple[object, int]] = {}
+        self._write_q: deque = deque()
+        self._writing = False
+        self._write_gen = 0  # moves on at each failure: old writers stop
+        self._epollout = threading.Event()
+        self._reading = False
+        self._reading_lock = threading.Lock()
 
     # -- ids ---------------------------------------------------------------
     @classmethod
-    def create(cls, remote_side: EndPoint,
+    def create(cls, fd: Optional[pysocket.socket] = None,
+               remote_side: Optional[EndPoint] = None,
+               on_edge_triggered_events: Optional[Callable] = None,
                health_check_interval_s: float = -1,
                app_connect: Optional[Callable[["Socket"], int]] = None) -> int:
-        """An unconnected client socket; returns its id."""
-        sock = cls(None, remote_side)
+        """Register a socket and return its id. With ``fd`` (accepted or
+        listening) it joins the dispatcher at once; without, it is a
+        client socket that dials on ``connect``. ``on_edge_triggered_events``
+        handles its input."""
+        sock = cls(fd, remote_side)
+        sock.on_edge_triggered_events = on_edge_triggered_events
         sock.health_check_interval_s = health_check_interval_s
         sock.app_connect = app_connect
         sock._sid = sock.node_sid = _registry.put(sock)
+        _conn_count.update(1)
+        if fd is not None:
+            fd.setblocking(False)
+            sock._register_with_dispatcher(fd)
         return sock._sid
 
     @classmethod
@@ -159,8 +189,9 @@ class Socket:
 
     # -- connect -----------------------------------------------------------
     def connect(self, timeout_s: float = 1.0) -> int:
-        """Dial the peer, run the app_connect hook (the device handshake
-        owns the connection's first bytes) and start the reader."""
+        """Dial the peer, run the app_connect hook on the blocking socket
+        (the device handshake owns the connection's first bytes), then
+        make it non-blocking and register it with the dispatcher."""
         try:
             fd = pysocket.create_connection(self.remote_side.as_sockaddr(),
                                             timeout=timeout_s)
@@ -179,12 +210,11 @@ class Socket:
             if rc != 0:
                 self.set_failed(rc, "app connect failed")
                 return rc
-        from brpc_tpu_torch.rpc import tpu_std_protocol
-
-        threading.Thread(
-            target=self._client_read, name="socket-read", daemon=True,
-            args=(fd, ((tpu_std_protocol.parse,
-                        tpu_std_protocol.process_response),))).start()
+        fd.setblocking(False)
+        with self._state_lock:
+            if self._failed or self._fd is not fd:
+                return self.error_code or errors.EFAILEDSOCKET
+        self._register_with_dispatcher(fd)
         self._conn_ready = True
         return 0
 
@@ -201,78 +231,110 @@ class Socket:
                 return self.error_code or errors.EFAILEDSOCKET
             return self.connect(timeout_s)
 
-    def _client_read(self, fd, parsers):
-        self.read_loop(parsers, None, fd)
-        self.set_failed(errors.ECLOSE, "remote closed", fd=fd)
+    def _register_with_dispatcher(self, fd: pysocket.socket):
+        fdno = fd.fileno()
+        get_global_dispatcher(fdno).add_consumer(
+            fdno, lambda: self.start_input_event(fd))
 
     # -- read --------------------------------------------------------------
-    def read_loop(self, parsers: Sequence[Tuple[Callable, Callable]], arg,
-                  fd: Optional[pysocket.socket] = None):
-        """Read until EOF. ``parsers`` are (parse, process) pairs tried in
-        order on the buffered bytes; a parsed message gets ``socket`` and
-        ``arg`` and is processed inline. Returns on EOF, on a broken
-        connection or on bytes no parser accepts."""
-        fd = fd if fd is not None else self._fd
-        portal = IOBuf()
-        while True:
-            try:
-                data = fd.recv(READ_CHUNK)
-            except OSError:
+    def start_input_event(self, fd: Optional[pysocket.socket] = None):
+        """The dispatcher's callback: start one input task unless one is
+        reading this connection already. Read events of the fd stay
+        suspended until the task ends."""
+        with self._reading_lock:
+            if self._reading or self._failed:
                 return
-            if not data:
+            fd = fd if fd is not None else self._fd
+            handler = self.on_edge_triggered_events
+            if handler is None or fd is None or fd is not self._fd:
                 return
-            portal.append(data)
-            while len(portal):
-                status = ParseResult.TRY_OTHERS
-                for parse, process in parsers:
-                    result = parse(portal, self, False, arg)
-                    status = result.status
-                    if status == ParseResult.OK:
-                        msg = result.message
-                        msg.socket = self
-                        msg.arg = arg
-                        try:
-                            process(msg)
-                        except Exception:
-                            # a fault in one message's processing must not
-                            # take the connection's other calls down
-                            traceback.print_exc(file=sys.stderr)
-                        break
-                    if status != ParseResult.TRY_OTHERS:
-                        break
-                if status == ParseResult.NOT_ENOUGH_DATA:
-                    break
-                if status != ParseResult.OK:
-                    return  # malformed or unknown bytes: drop the connection
+            self._reading = True
+        fdno = fd.fileno()
+        get_global_dispatcher(fdno).suspend_read(fdno)
+        start_background(self._run_input_handler, handler, fd, fdno)
+
+    def _run_input_handler(self, handler, fd, fdno: int):
+        try:
+            handler(self)
+        finally:
+            with self._reading_lock:
+                self._reading = False
+            if not self._failed and self._fd is fd:
+                get_global_dispatcher(fdno).resume_read(fdno)
 
     # -- write -------------------------------------------------------------
     def write(self, buf: IOBuf, id_wait: Optional[int] = None) -> int:
-        """Write the whole message; 0 on success, -1 when the connection
-        is failed or breaks. ``id_wait`` is the call id of the attempt the
-        message carries: a failure of this socket errors it, now or until
-        the RPC removes it. Tensors riding the chain are read to the host
-        here."""
+        """Queue the whole message; 0 on success, -1 when the connection
+        has failed. ``id_wait`` is the call id of the attempt the message
+        carries: a failure of this socket errors it, now or until the RPC
+        removes it. Tensors riding the chain are read to the host when
+        the frame is written."""
         with self._state_lock:
-            fd = self._fd
-            if self._failed or fd is None:
+            if self._failed or self._fd is None:
                 fail_now = True
             else:
                 fail_now = False
                 if id_wait is not None:
                     self._inflight_ids.add(id_wait)
+                self._write_q.append(buf)
+                if self._writing:
+                    return 0  # the writer sends it after what it holds
+                self._writing = True
+                gen = self._write_gen
         if fail_now:
             if id_wait is not None:
                 bthread_id.error(id_wait, self.error_code or errors.EFAILEDSOCKET,
                                  self.error_text or "socket failed")
             return -1
-        try:
-            with self._write_lock:
-                for view in buf.iter_views():
-                    fd.sendall(view)
-            return 0
-        except OSError as e:
-            self.set_failed(errors.EFAILEDSOCKET, f"write failed: {e}", fd=fd)
-            return -1
+        # we are the writer: what the socket takes now, on this thread;
+        # the rest in a KeepWrite task
+        if not self._flush_some(gen):
+            start_background(self._keep_write, gen)
+        return 0
+
+    def _flush_some(self, gen: int) -> bool:
+        """Write the queue until it is empty or the writer's connection is
+        gone (True), or until the socket is full (False)."""
+        while True:
+            with self._state_lock:
+                if self._write_gen != gen:
+                    return True  # failed: the queue was dropped
+                if not self._write_q:
+                    self._writing = False
+                    return True
+                buf, fd = self._write_q[0], self._fd
+            try:
+                n = buf.cut_into_socket(fd)
+            except (BlockingIOError, InterruptedError):
+                return False
+            except OSError as e:
+                self.set_failed(errors.EFAILEDSOCKET, f"write failed: {e}",
+                                fd=fd)
+                return True
+            if n > 0:
+                _out_bytes.update(n)
+            if buf.empty():
+                with self._state_lock:
+                    if (self._write_gen == gen and self._write_q
+                            and self._write_q[0] is buf):
+                        self._write_q.popleft()
+            elif n == 0:
+                return False
+
+    def _keep_write(self, gen: int):
+        while True:
+            with self._state_lock:
+                if self._write_gen != gen:
+                    return
+                fd, wakeup = self._fd, self._epollout
+            wakeup.clear()
+            if self._flush_some(gen):
+                return
+            fdno = fd.fileno()
+            if fdno < 0:
+                return
+            get_global_dispatcher(fdno).add_epollout(fdno, wakeup.set)
+            wakeup.wait(timeout=1.0)
 
     def remove_inflight(self, cid: int):
         with self._state_lock:
@@ -321,16 +383,27 @@ class Socket:
             self.error_text = error_text
             fd, self._fd = self._fd, None
             inflight, self._inflight_ids = list(self._inflight_ids), set()
+            self._write_q.clear()
+            self._writing = False
+            self._write_gen += 1
+            wakeup = self._epollout
             start_hc = (self.health_check_interval_s > 0
                         and not self._hc_running and not self._recycled
+                        and not self._accepted
                         and self.remote_side is not None)
             if start_hc:
                 self._hc_running = True
+        wakeup.set()  # a KeepWrite task waiting for room ends
         if fd is not None:
             _close_fd(fd)
         self._release_sends()
         for cid in inflight:
             bthread_id.error(cid, self.error_code, error_text or "socket failed")
+        if self._accepted and not self._recycled:
+            # nothing dials an accepted connection again: its id goes
+            self._recycled = True
+            _registry.remove(self._sid)
+            _conn_count.update(-1)
         if start_hc:
             timer_add(self.health_check_interval_s, self._health_check_once)
         return True
@@ -367,6 +440,9 @@ class Socket:
                 self.lame_duck = False
                 self.error_code = 0
                 self.error_text = ""
+                self.read_portal = IOBuf()
+                self.matched_protocol = None
+                self._epollout = threading.Event()
             rc = self.connect()
             if rc != 0:
                 with self._state_lock:
@@ -378,7 +454,8 @@ class Socket:
         self._recycled = True
         self.set_failed(errors.ECLOSE, "recycled")
         self.health_check_interval_s = -1
-        _registry.remove(self._sid)
+        if _registry.remove(self._sid):
+            _conn_count.update(-1)
 
     def close(self):
         """The server's end of a connection: close it and release what its
@@ -390,9 +467,14 @@ class Socket:
         return f"Socket(id={self._sid:#x}, remote={self.remote_side}, {state})"
 
 
-def _close_fd(fd):
+def _close_fd(fd: pysocket.socket):
+    """Shut the connection down at once (the peer sees its end now), then
+    close the fd on its dispatcher's loop thread, after unregistering it."""
     try:
         fd.shutdown(pysocket.SHUT_RDWR)
     except OSError:
-        pass  # not connected any more
-    fd.close()
+        pass  # not connected, or a listener
+    fdno = fd.fileno()
+    if fdno < 0:
+        return
+    get_global_dispatcher(fdno).remove_and_close(fdno, fd)

@@ -57,8 +57,11 @@ class SocketMap:
                 # a failed or draining socket is replaced, not recycled:
                 # its calls in flight still complete on it
                 del self._map[key]
+            from brpc_tpu_torch.rpc.channel import get_client_messenger
+
             sid = Socket.create(
                 remote_side=ep,
+                on_edge_triggered_events=get_client_messenger().on_new_messages,
                 health_check_interval_s=health_check_interval_s,
                 app_connect=(app_connect_factory()
                              if app_connect_factory is not None else None))

@@ -6,9 +6,10 @@ described by RpcMeta.tensors, via brpc_tpu_torch.rpc.device_transport:
 zero-copy in process, a shared-arena descriptor or a device-to-device
 pull on the same host, and bytes on the wire otherwise.
 
-Server-side handshake counterpart: the TDEV parser below answers the
-DeviceEndpoint.app_connect handshake on accepted connections, so both ends
-of a connection know each other's device identity.
+Server-side handshake counterpart: the ``device_handshake`` protocol
+below answers the DeviceEndpoint.app_connect handshake on accepted
+connections, so both ends of a connection know each other's device
+identity.
 """
 from __future__ import annotations
 
@@ -24,7 +25,13 @@ from brpc_tpu_torch.rpc.device_transport import (
     local_device_info,
     receive_tensors,
 )
-from brpc_tpu_torch.rpc.protocol import InputMessageBase, ParseResult
+from brpc_tpu_torch.rpc.protocol import (
+    InputMessageBase,
+    ParseResult,
+    Protocol,
+    ProtocolType,
+    register_protocol,
+)
 from brpc_tpu_torch.rpc.proto import wire as ts_pb2
 from brpc_tpu_torch.rpc.service import Service, rpc_method
 
@@ -79,7 +86,9 @@ def _process_handshake(msg: _HandshakeMsg):
         ep.state = dt.ESTABLISHED
         if msg.info.get("xfer"):
             try:
-                ep.resolve_xfer_addr(sock.fd().getsockname()[0])
+                fd = sock.fd()
+                if fd is not None:
+                    ep.resolve_xfer_addr(fd.getsockname()[0])
             except OSError:
                 pass
     else:
@@ -89,6 +98,18 @@ def _process_handshake(msg: _HandshakeMsg):
     out = IOBuf()
     out.append(_HANDSHAKE_MAGIC + struct.pack(">I", len(info)) + info)
     sock.write(out)
+
+
+# processed inline: the endpoint is on the connection before any request
+# that follows the handshake runs
+register_protocol(Protocol(
+    name="device_handshake",
+    type=ProtocolType.TENSOR,
+    parse=_parse_handshake,
+    process_request=_process_handshake,
+    process_inline=True,
+    support_client=False,
+))
 
 
 # -- the store service ------------------------------------------------------

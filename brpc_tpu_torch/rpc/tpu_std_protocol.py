@@ -5,8 +5,13 @@ Port of brpc_tpu/rpc/tpu_std_protocol.py, byte-compatible with it: a
 ``RpcMeta``, the payload, and an attachment whose size rides in the meta.
 The attachment carries the tensors that ``meta.tensors`` describes.
 
-Left out in this slice: authentication, interceptors, compression other
-than 0 (a request asking for it is refused with EREQUEST) and streams.
+The server path runs the interceptor, finds the method, asks its
+MethodStatus (a limiter's refusal is ELIMIT), parses the request, lends
+the session data and records the call's latency when it is done. A
+response whose meta carries the SHUTDOWN bit (field 8) marks its
+connection lame duck. Left out: authentication, rpcz spans, compression
+other than 0 (a request asking for it is refused with EREQUEST) and
+streams.
 """
 from __future__ import annotations
 
@@ -17,7 +22,13 @@ from brpc_tpu_torch.bthread import id as bthread_id
 from brpc_tpu_torch.butil.iobuf import IOBuf
 from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.controller import Controller
-from brpc_tpu_torch.rpc.protocol import InputMessageBase, ParseResult
+from brpc_tpu_torch.rpc.protocol import (
+    InputMessageBase,
+    ParseResult,
+    Protocol,
+    ProtocolType,
+    register_protocol,
+)
 from brpc_tpu_torch.rpc.proto.wire import DecodeError, RpcMeta
 
 MAGIC = b"TRPC"
@@ -50,6 +61,49 @@ def pack_frame(meta, payload: bytes, attachment: IOBuf) -> IOBuf:
     return out
 
 
+def _meta_shutdown_bit(meta_bytes: bytes) -> bool:
+    """The lame-duck SHUTDOWN bit: top-level RpcMeta varint field 8, a
+    draining server's signal. RpcMeta does not declare the field, so the
+    raw bytes are walked tag by tag."""
+    i, n = 0, len(meta_bytes)
+
+    def varint(i):
+        v = s = 0
+        while i < n:
+            b = meta_bytes[i]
+            i += 1
+            v |= (b & 0x7F) << s
+            if not b & 0x80:
+                return v, i
+            s += 7
+        return None, i
+
+    while i < n:
+        tag, i = varint(i)
+        if tag is None:
+            return False
+        field, wire = tag >> 3, tag & 7
+        if field == 8 and wire == 0:
+            v, i = varint(i)
+            return bool(v)
+        if wire == 0:
+            v, i = varint(i)
+            if v is None:
+                return False
+        elif wire == 2:
+            ln, i = varint(i)
+            if ln is None or i + ln > n:
+                return False
+            i += ln
+        elif wire == 1:
+            i += 8
+        elif wire == 5:
+            i += 4
+        else:
+            return False
+    return False
+
+
 def parse(portal: IOBuf, sock, read_eof: bool, arg) -> ParseResult:
     """Cut one frame off the front of ``portal``."""
     if len(portal) < HEADER_LEN:
@@ -66,11 +120,16 @@ def parse(portal: IOBuf, sock, read_eof: bool, arg) -> ParseResult:
     if len(portal) < HEADER_LEN + body_size:
         return ParseResult.not_enough()
     portal.pop_front(HEADER_LEN)
+    meta_bytes = portal.cutn_bytes(meta_size)
     meta = RpcMeta()
     try:
-        meta.ParseFromString(portal.cutn_bytes(meta_size))
+        meta.ParseFromString(meta_bytes)
     except DecodeError:
         return ParseResult.error_()
+    # a draining server: new calls go elsewhere, the ones in flight on
+    # this connection complete
+    if meta.HasField("response") and _meta_shutdown_bit(bytes(meta_bytes)):
+        sock.mark_lame_duck()
     att_size = meta.attachment_size
     payload_size = body_size - meta_size - att_size
     if att_size < 0 or payload_size < 0:
@@ -149,8 +208,10 @@ def send_rpc_response(sock, correlation_id: int, cntl: Controller,
 
 
 def process_request(msg: RpcMessage):
-    """Run one request: find the method, parse the request, call the
-    handler with a ``done`` closure that sends the response."""
+    """Run one request: the interceptor, the method, its MethodStatus (a
+    limiter's refusal is ELIMIT), the request's parse, then the handler
+    with a ``done`` closure that records the latency, returns the session
+    data and sends the response."""
     server = msg.arg
     meta = msg.meta
     cid = meta.correlation_id
@@ -165,13 +226,22 @@ def process_request(msg: RpcMessage):
     cntl._server_socket = sock
     cntl._rpc_meta = meta
     cntl._response_meta = RpcMeta()
+    cntl.server_start_time = time.monotonic()
     if meta.request.timeout_ms > 0:
         cntl.timeout_ms = meta.request.timeout_ms
 
-    if meta.compress_type != 0:
-        cntl.set_failed(errors.EREQUEST,
-                        f"compress_type {meta.compress_type} not supported")
+    if server is None:
+        cntl.set_failed(errors.EINVAL, "no server bound to connection")
         return send_rpc_response(sock, cid, cntl, None, IOBuf())
+
+    if server.interceptor is not None:
+        try:
+            ok, code, text = server.interceptor(cntl)
+        except Exception as e:
+            ok, code, text = False, errors.EINVAL, f"interceptor raised: {e}"
+        if not ok:
+            cntl.set_failed(code or errors.EPERM, text or "rejected")
+            return send_rpc_response(sock, cid, cntl, None, IOBuf())
 
     entry = server.find_method(cntl.service_name, cntl.method_name)
     if entry is None:
@@ -181,23 +251,38 @@ def process_request(msg: RpcMessage):
             f"unknown {cntl.service_name}.{cntl.method_name}",
         )
         return send_rpc_response(sock, cid, cntl, None, IOBuf())
-    service_obj, method_info = entry
+    service_obj, method_info, method_status = entry
+
+    if not method_status.on_requested():
+        cntl.set_failed(errors.ELIMIT, "reached max_concurrency")
+        return send_rpc_response(sock, cid, cntl, None, IOBuf())
 
     request = method_info.request_class()
     try:
+        if meta.compress_type != 0:
+            raise ValueError(f"compress_type {meta.compress_type} "
+                             "not supported")
         if msg.payload:
             request.ParseFromString(msg.payload)
-    except DecodeError as e:
+    except (DecodeError, ValueError) as e:
+        method_status.on_response(errors.EREQUEST, cntl.server_start_time)
         cntl.set_failed(errors.EREQUEST, f"fail to parse request: {e}")
         return send_rpc_response(sock, cid, cntl, None, IOBuf())
 
     response = method_info.response_class()
     responded = [False]
+    if server.session_pool is not None:
+        cntl.session_local_data = server.session_pool.borrow()
 
     def done():
         if responded[0]:
             return
         responded[0] = True
+        method_status.on_response(cntl.error_code_value,
+                                  cntl.server_start_time)
+        if server.session_pool is not None:
+            server.session_pool.return_(cntl.session_local_data)
+            cntl.session_local_data = None
         send_rpc_response(sock, cid, cntl, response, cntl.response_attachment)
 
     # The handler owns `done`; respond for it only if it raises first.
@@ -207,3 +292,12 @@ def process_request(msg: RpcMessage):
         if not responded[0]:
             cntl.set_failed(errors.EINVAL, f"method raised: {e}")
             done()
+
+
+register_protocol(Protocol(
+    name="tpu_std",
+    type=ProtocolType.TPU_STD,
+    parse=parse,
+    process_request=process_request,
+    process_response=process_response,
+))

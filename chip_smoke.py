@@ -2,8 +2,8 @@
 """Smoke run of brpc_tpu_torch (the PyTorch/CUDA port) on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``python3 chip_smoke.py --peer`` is the second process of phase 6; the
-script starts it itself.)
+(``python3 chip_smoke.py --peer`` is the second process of phases 6, 8
+and 9; the script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -66,7 +66,31 @@ unavailable, or when the port is not beside it:
             are byte-identical). (d) A SelectiveChannel over two
             single-address device channels, one peer killed: pushes still
             succeed and land on the live peer's card. A killed peer's shared
-            arena is unlinked here. The peers are always stopped.
+            arena is unlinked here. The peers are always stopped;
+9. serve many connections — one ``--peer``: the full Server (8 task-control
+            workers, the event dispatcher, the shm lane), landing every push
+            on its card through the block pool. (b) 16 client threads, each
+            on a connection of its own, push and pull + ACK the flagship's
+            activations 10 times: byte-identical, every tensor on the peer's
+            card, the pool's free lists full again, every endpoint, window
+            and arena at rest; client push and pull + ACK median and p99,
+            the peer's TensorStore_Push p50 / p99, the aggregate rate, beside
+            phase 8's single-stream push. (a) 256 connections open at once,
+            each with its device handshake, one 8 KiB push and one pull +
+            ACK: byte-identical, at rest, and the thread count of both
+            processes grows by fewer than 8. (c) A limit of 2 on
+            TensorStore.Push and a 50 ms push: 16 concurrent pushes with
+            max_retry=0; the client's ELIMITs equal the peer's rejected
+            count, every accepted push is stored byte-identical, no
+            rejected one is stored, the client's window and arena at rest.
+            (d) The peer stops while 8 pushes of 64 MiB are in flight: each
+            fails with a socket error well before its deadline, every
+            client endpoint and the send arena at rest, the peer exits 0.
+            (e) The peer's cuda_device_count is 1. (f) Threads pull +
+            ACK 9b's tensors through one device Channel (one connection),
+            as many at once as its send window holds: byte-identical, at
+            rest. More at once would stall on the window (ROADMAP queue C
+            #12).
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -82,6 +106,7 @@ import select
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -90,7 +115,8 @@ from brpc_tpu_torch.butil import flags
 from brpc_tpu_torch.entry import dryrun_multichip
 from brpc_tpu_torch.parallel import run_ranks
 from brpc_tpu_torch.parallel.world import tensors_to_numpy
-from brpc_tpu_torch.bvar import find_exposed
+from brpc_tpu_torch.butil.endpoint import EndPoint
+from brpc_tpu_torch.bvar import expose_default_variables, find_exposed
 from brpc_tpu_torch.rpc import (
     Channel,
     ChannelOptions,
@@ -99,7 +125,9 @@ from brpc_tpu_torch.rpc import (
     Server,
     ServerOptions,
 )
-from brpc_tpu_torch.rpc import cuda_ipc_transfer
+from brpc_tpu_torch.rpc import cuda_ipc_transfer, errors
+from brpc_tpu_torch.rpc.channel import call_on_socket, get_client_messenger
+from brpc_tpu_torch.rpc.concurrency_limiter import create_concurrency_limiter
 from brpc_tpu_torch.rpc import device_transport as dt
 from brpc_tpu_torch.rpc.proto import wire
 from brpc_tpu_torch.rpc.service import Service, rpc_method
@@ -384,6 +412,7 @@ def phase_card_vs_cpu(tag: str):
 # -- phase 6: serve across processes -----------------------------------------
 
 PREFER_XFER = "device_transport_prefer_xfer"
+PEER_THREADS = 8  # the peer's task-control workers
 XROUNDS = 7  # push + pull + ACK rounds per payload and lane (median)
 PEER_READY_S = 180
 LANE_PREFIX = {"wire": "wire::", "shm": "shm:", "xfer": "xfer|"}
@@ -391,12 +420,17 @@ LANE_PREFIX = {"wire": "wire::", "shm": "shm:", "xfer": "xfer|"}
 
 class SmokePeer(Service):
     """The peer's side door for the checks: set the prefer-xfer flag,
-    overwrite a stored tensor in place, clear the store, and report the
-    state of the calling connection's endpoint, the lanes, the arena and
-    card memory (as JSON in the response attachment)."""
+    overwrite a stored tensor in place, clear the store, slow or land
+    pushes, set a method's limit, stop the server after a while, and
+    report the state of the calling connection's endpoint, every
+    connection's, the lanes, the arena, the block pool, card memory, the
+    thread count and TensorStore.Push's method status (as JSON in the
+    response attachment)."""
 
     def __init__(self, store: TensorStoreService):
         self.store = store
+        self.stopped_at = None
+        self.stop_concurrency = None
 
     @rpc_method(wire.TensorPullRequest, wire.TensorAckResponse)
     def Control(self, cntl, request, response, done):
@@ -413,13 +447,30 @@ class SmokePeer(Service):
             self.store.push_delay_s = float(cmd["seconds"])
         elif cmd["op"] == "to_card":
             self.store.to_card = bool(cmd["on"])
+        elif cmd["op"] == "limit":
+            status = cntl.server.method_statuses()[cmd["method"]]
+            status.limiter = (create_concurrency_limiter(int(cmd["max"]))
+                              if cmd["max"] else None)
+        elif cmd["op"] == "stop":
+            # the server stops after_s from now, wherever its calls are
+            srv = cntl.server
+
+            def stop():
+                self.stopped_at = time.time()
+                self.stop_concurrency = srv.method_statuses()[
+                    "TensorStore.Push"].concurrency
+                srv.stop()
+
+            threading.Timer(float(cmd["after_s"]), stop).start()
         torch.cuda.synchronize()
         ep = cntl._server_socket.app_state
         arena = dt.default_send_arena()
         server = dt._global_xfer_server()
         # every connection's endpoint, the balanced channels' included
-        eps = [s.app_state for s in list(cntl.server._conns)
-               if s.app_state is not None]
+        conns = cntl.server.list_connections()
+        eps = [s.app_state for s in conns if s.app_state is not None]
+        push = cntl.server.method_statuses()["TensorStore.Push"]
+        rec = push.latency_recorder
         with self.store._lock:
             contents = {n: [str(t.device) for t in ts]
                         for n, ts in self.store._store.items()}
@@ -436,6 +487,18 @@ class SmokePeer(Service):
                                 for n, a in dt._attached_arenas.items()},
             "published": server.published_count() if server else 0,
             "memory_allocated": torch.cuda.memory_allocated(),
+            "connections": len(conns),
+            "threads": find_exposed("process_thread_count").get_value(),
+            "cuda_device_count": find_exposed("cuda_device_count").get_value(),
+            # the free blocks of each size class, of every pool made
+            "pool_free": {str(dev): {str(k): v for k, v in pool.stats().items()}
+                          for dev, pool in list(dt._default_pools.items())},
+            "push_status": {
+                "concurrency": push.concurrency,
+                "rejected_count": push.rejected_count,
+                "count": rec.count(),
+                "p50_us": rec.latency_percentile(0.5),
+                "p99_us": rec.latency_percentile(0.99)},
         }
         cntl.response_attachment.append(json.dumps(state).encode())
         response.ok = True
@@ -443,9 +506,10 @@ class SmokePeer(Service):
 
 
 class SmokeStore(TensorStoreService):
-    """The peer's store. Phase 8 switches on ``to_card`` (a push lands on
-    the peer's card before it is answered) and sets ``push_delay_s`` on
-    one peer (a slow server for the backup requests)."""
+    """The peer's store. Phases 8 and 9 switch on ``to_card`` (a push
+    lands on the peer's card, through the block pool, before it is
+    answered) and set ``push_delay_s`` (a slow server for the backup
+    requests, a held push for the limiter and the stop)."""
 
     def __init__(self):
         super().__init__()
@@ -460,10 +524,15 @@ class SmokeStore(TensorStoreService):
             return super().Push(cntl, request, response, done)
 
         def landed():
+            # through the block pool on this worker: its copies and the
+            # sync before a block goes back run on one thread
+            pool = dt.default_block_pool()
             with self._lock:
                 held = self._store.get(request.name)
                 if held is not None:
-                    self._store[request.name] = [t.to("cuda") for t in held]
+                    self._store[request.name] = [
+                        pool.put_via_pool(u8(t), t.dtype, t.shape)
+                        for t in held]
             torch.cuda.synchronize()
             done()
 
@@ -475,15 +544,29 @@ def peer_main() -> int:
         print("chip_smoke --peer: CUDA is not available", file=sys.stderr)
         return 2
     store = SmokeStore()
-    srv = Server(ServerOptions())
+    side = SmokePeer(store)
+    srv = Server(ServerOptions(num_threads=PEER_THREADS))
     check(srv.add_service(store) == 0, "peer add_service")
-    check(srv.add_service(SmokePeer(store)) == 0, "peer add_service")
+    check(srv.add_service(side) == 0, "peer add_service")
     check(srv.start("127.0.0.1:0") == 0, "peer server start")
     arena = dt.default_send_arena()  # named here: a killed peer leaves it
     print(f"peer ready {srv.listen_endpoint.port} "
           f"{arena.name if arena is not None else '-'}", flush=True)
-    sys.stdin.readline()  # the parent closes stdin to stop us
+    # the parent closes stdin to stop us, or a "stop" op stops the server
+    quit_ = threading.Event()
+    threading.Thread(target=lambda: (sys.stdin.readline(), quit_.set()),
+                     daemon=True).start()
+    while srv.is_running and not quit_.wait(0.05):
+        pass
     srv.stop()
+    if side.stopped_at is not None:
+        print(f"peer stopped {side.stopped_at} {side.stop_concurrency}",
+              flush=True)
+    # calls still in their handlers (a held push) end before we exit
+    end = time.monotonic() + 30
+    while (any(st.concurrency for st in srv.method_statuses().values())
+           and time.monotonic() < end):
+        time.sleep(0.01)
     return 0
 
 
@@ -1142,6 +1225,386 @@ def phase_naming(tag: str, gen):
                 rcs.append(stop_peer(proc))
     check(failed or all(rc == 0 for rc in rcs),
           f"phase 8 peers exited with codes {rcs}")
+    return result
+
+# -- phase 9: many connections to the full server ------------------------------
+
+CONNS_9A = 256
+THREADS_9B, ROUNDS_9B = 16, 10
+PUSHES_9C, LIMIT_9C, DELAY_9C = 16, 2, 0.05
+PUSHES_9D, STOP_AFTER_9D, DELAY_9D, DEADLINE_9D_MS = 8, 1.0, 2.0, 10000
+ROUNDS_9F = 10
+
+
+class PinnedChannel:
+    """One connection as a channel, so a TensorClient runs on a connection
+    of its own (device channels to one server share one connection)."""
+
+    def __init__(self, sock: Socket):
+        self.sock = sock
+
+    def call_method(self, method, cntl, request, response, done=None):
+        call_on_socket(self.sock, method, cntl, request, response, done)
+
+
+def device_socket(port: int) -> Socket:
+    """A new connection to the peer with its device handshake, read by
+    the process's client messenger."""
+    sid = Socket.create(
+        remote_side=EndPoint("127.0.0.1", port),
+        on_edge_triggered_events=get_client_messenger().on_new_messages,
+        app_connect=dt.DeviceEndpoint().app_connect)
+    sock = Socket.address(sid)
+    check(sock.connect(5.0) == 0, f"connect to the peer {port}")
+    check(sock.app_state.state == dt.ESTABLISHED,
+          f"handshake with the peer {port}: {sock.app_state.state}")
+    return sock
+
+
+def _threads_here() -> int:
+    expose_default_variables()  # done by a server start, once
+    return find_exposed("process_thread_count").get_value()
+
+
+def _sockets_at_rest(socks, what: str):
+    for sock in socks:
+        ep = sock.app_state
+        check(ep.retained_count == 0 and ep.inflight_bytes == 0,
+              f"{what}: client endpoint of {sock} holds {ep.retained_count} "
+              f"sends, {ep.inflight_bytes} B")
+    arena = dt.default_send_arena()
+    check(arena.free_bytes() == arena.size, f"{what}: send arena spans held")
+
+
+def _peer_at_rest(st: dict, what: str):
+    check(st["all_retained"] == 0 and st["all_inflight"] == 0
+          and st["arena_free"] == st["arena_size"],
+          f"{what}: peer not at rest: retained {st['all_retained']}, "
+          f"{st['all_inflight']} B in flight, arena "
+          f"{st['arena_free']}/{st['arena_size']} B free")
+
+
+def _pool_full(st: dict, what: str):
+    for dev, free in st["pool_free"].items():
+        check(all(n == 8 for n in free.values()),
+              f"{what}: the peer's block pool on {dev} lacks blocks: {free}")
+
+
+def _run_threads(fns, what: str, timeout_s: float = 120):
+    errs, threads = [], []
+
+    def guard(fn):
+        try:
+            fn()
+        except Exception as e:  # reported below, with the others
+            errs.append(e)
+
+    for fn in fns:
+        threads.append(threading.Thread(target=guard, args=(fn,)))
+        threads[-1].start()
+    for t in threads:
+        t.join(timeout_s)
+        check(not t.is_alive(), f"{what}: a client thread hangs")
+    if errs:
+        raise errs[0]
+
+
+def _p99(xs) -> float:
+    return round(sorted(xs)[min(len(xs) - 1, int(0.99 * len(xs)))] * 1e3, 3)
+
+
+def serve_concurrent(port: int, ctl, act, naming: dict, tag: str):
+    """9b: 16 threads, each on its own connection, push and pull + ACK the
+    activations 10 times against the peer's workers."""
+    dev = torch.device("cuda")
+    socks = [device_socket(port) for _ in range(THREADS_9B)]
+    push_s, pull_s = [], []
+    lock = threading.Lock()
+
+    def rounds(k):
+        client = TensorClient(PinnedChannel(socks[k]))
+        for _ in range(ROUNDS_9B):
+            t0 = time.perf_counter()
+            cntl, resp = client.push(f"b{k}", [act])
+            t1 = time.perf_counter()
+            check(not cntl.failed() and resp.ok,
+                  f"9b push {k}: {cntl.error_text}")
+            pcntl, got = client.pull(f"b{k}", device=dev)
+            t2 = time.perf_counter()
+            check(not pcntl.failed() and got is not None,
+                  f"9b pull {k}: {pcntl.error_text}")
+            check(torch.equal(u8(got[0]), u8(act)), f"9b {k}: bytes differ")
+            with lock:
+                push_s.append(t1 - t0)
+                pull_s.append(t2 - t1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _run_threads([lambda k=k: rounds(k) for k in range(THREADS_9B)], "9b")
+    wall = time.perf_counter() - t0
+    st = peer_control(ctl, "state")
+    stored = {n: ds for n, ds in st["contents"].items() if n.startswith("b")}
+    check(len(stored) == THREADS_9B
+          and all(d.startswith("cuda") for ds in stored.values() for d in ds),
+          f"9b: the peer holds {stored}")
+    _peer_at_rest(st, "9b")
+    _pool_full(st, "9b")
+    _sockets_at_rest(socks, "9b")
+    nbytes = act.numel() * act.element_size()
+    moved = 2 * nbytes * THREADS_9B * ROUNDS_9B
+    ps = st["push_status"]
+    single = naming["rr"]["push_ms_8MiB"]
+    out = {"push_ms_median": _ms(push_s), "push_ms_p99": _p99(push_s),
+           "pull_ack_ms_median": _ms(pull_s), "pull_ack_ms_p99": _p99(pull_s),
+           "peer_push_p50_ms": round(ps["p50_us"] / 1e3, 3),
+           "peer_push_p99_ms": round(ps["p99_us"] / 1e3, 3),
+           "peer_push_count": ps["count"],
+           "aggregate_GBps": round(moved / wall / 1e9, 3),
+           "wall_s": round(wall, 3), "phase8_single_push_ms": single}
+    print(f"serve/9b: {THREADS_9B} threads x {ROUNDS_9B} push + pull + ACK of "
+          f"{list(act.shape)} {act.dtype} on {THREADS_9B} connections, "
+          f"byte-identical, all on the peer's card, pool full, at rest; "
+          f"client push median {out['push_ms_median']} ms p99 "
+          f"{out['push_ms_p99']} ms, pull+ACK median "
+          f"{out['pull_ack_ms_median']} ms p99 {out['pull_ack_ms_p99']} ms; "
+          f"peer TensorStore_Push p50 {out['peer_push_p50_ms']} ms p99 "
+          f"{out['peer_push_p99_ms']} ms ({ps['count']} pushes); "
+          f"{out['aggregate_GBps']} GB/s in {out['wall_s']} s; phase 8's "
+          f"single-stream push {single} ms {tag}")
+    return out, socks
+
+
+def serve_one_channel(port: int, ctl, act, tag: str):
+    """9f: threads pull + ACK 9b's tensors through one device Channel (one
+    connection), as many at once as the connection's send window holds:
+    more would wait in the peer's prepare_send and hold the worker that
+    reads the connection (ROADMAP queue C #12)."""
+    dev = torch.device("cuda")
+    nbytes = act.numel() * act.element_size()
+    pullers = dt.DEFAULT_WINDOW_BYTES // nbytes
+    ch = _device_channel(f"127.0.0.1:{port}")
+    pull_s, conns = [], set()
+    lock = threading.Lock()
+
+    def rounds(k):
+        client = TensorClient(ch)
+        for _ in range(ROUNDS_9F):
+            t0 = time.perf_counter()
+            cntl, got = client.pull(f"b{k % THREADS_9B}", device=dev)
+            t1 = time.perf_counter()
+            check(not cntl.failed() and got is not None,
+                  f"9f pull {k}: {cntl.error_text}")
+            check(torch.equal(u8(got[0]), u8(act)), f"9f {k}: bytes differ")
+            with lock:
+                pull_s.append(t1 - t0)
+                conns.add(cntl._current_sock.socket_id)
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _run_threads([lambda k=k: rounds(k) for k in range(pullers)], "9f")
+        wall = time.perf_counter() - t0
+        check(len(conns) == 1, f"9f: the pulls used {len(conns)} connections")
+        _client_at_rest(ch, "9f")
+    finally:
+        ch.close()
+    _peer_at_rest(peer_control(ctl, "state"), "9f")
+    out = {"pullers": pullers, "pull_ack_ms_median": _ms(pull_s),
+           "pull_ack_ms_p99": _p99(pull_s),
+           "aggregate_GBps": round(nbytes * pullers * ROUNDS_9F / wall / 1e9,
+                                   3),
+           "wall_s": round(wall, 3)}
+    print(f"serve/9f: {pullers} threads x {ROUNDS_9F} pull + ACK of "
+          f"{list(act.shape)} {act.dtype} through one device Channel (a "
+          f"{dt.DEFAULT_WINDOW_BYTES >> 20} MiB window), byte-identical, at "
+          f"rest; pull+ACK median {out['pull_ack_ms_median']} ms p99 "
+          f"{out['pull_ack_ms_p99']} ms; {out['aggregate_GBps']} GB/s in "
+          f"{out['wall_s']} s {tag}")
+    return out
+
+
+def serve_many_connections(port: int, ctl, gen, tag: str):
+    """9a: 256 connections open at once, each with a handshake, one 8 KiB
+    push and one pull + ACK."""
+    dev = torch.device("cuda")
+    x = torch.randn((2048,), dtype=torch.float32, device=dev, generator=gen)
+    peer0 = peer_control(ctl, "state")
+    mine0 = _threads_here()
+    socks = []
+    t0 = time.perf_counter()
+    try:
+        for _ in range(CONNS_9A):
+            socks.append(device_socket(port))
+
+        def serve(chunk):
+            for i in chunk:
+                client = TensorClient(PinnedChannel(socks[i]))
+                cntl, resp = client.push(f"a{i}", [x])
+                check(not cntl.failed() and resp.ok,
+                      f"9a push {i}: {cntl.error_text}")
+                pcntl, got = client.pull(f"a{i}", device=dev)
+                check(not pcntl.failed() and got is not None,
+                      f"9a pull {i}: {pcntl.error_text}")
+                check(torch.equal(u8(got[0]), u8(x)), f"9a {i}: bytes differ")
+
+        chunks = [range(k, CONNS_9A, 16) for k in range(16)]
+        _run_threads([lambda c=c: serve(c) for c in chunks], "9a")
+        wall = time.perf_counter() - t0
+        mine1 = _threads_here()
+        st = peer_control(ctl, "state")
+        check(st["connections"] >= CONNS_9A,
+              f"9a: the peer counts {st['connections']} connections")
+        _peer_at_rest(st, "9a")
+        _pool_full(st, "9a")
+        _sockets_at_rest(socks, "9a")
+    finally:
+        for sock in socks:
+            sock.recycle()
+    out = {"connections": CONNS_9A, "wall_s": round(wall, 3),
+           "peer_threads": [peer0["threads"], st["threads"]],
+           "client_threads": [mine0, mine1]}
+    print(f"serve/9a: {CONNS_9A} connections open at once, each with its "
+          f"handshake, an 8 KiB push and a pull + ACK, byte-identical, at "
+          f"rest, in {out['wall_s']} s; threads: peer {peer0['threads']} -> "
+          f"{st['threads']}, here {mine0} -> {mine1} {tag}")
+    check(st["threads"] - peer0["threads"] < 8,
+          f"9a: the peer grew by {st['threads'] - peer0['threads']} threads")
+    check(mine1 - mine0 < 8, f"9a: this process grew by {mine1 - mine0} "
+          f"threads")
+    return out
+
+
+def serve_limited(ctl, socks, act, tag: str):
+    """9c: TensorStore.Push limited to 2 and slowed to 50 ms; 16 concurrent
+    pushes with max_retry=0."""
+    dev = torch.device("cuda")
+    peer_control(ctl, "limit", method="TensorStore.Push", max=LIMIT_9C)
+    peer_control(ctl, "delay", seconds=DELAY_9C)
+    codes = {}
+
+    def push(k):
+        cntl, resp = TensorClient(PinnedChannel(socks[k])).push(f"c{k}", [act])
+        codes[k] = cntl.error_code
+
+    try:
+        _run_threads([lambda k=k: push(k) for k in range(PUSHES_9C)], "9c")
+    finally:
+        peer_control(ctl, "delay", seconds=0)
+        peer_control(ctl, "limit", method="TensorStore.Push", max=0)
+    rejected = sorted(k for k, c in codes.items() if c == errors.ELIMIT)
+    accepted = sorted(k for k, c in codes.items() if c == 0)
+    check(len(rejected) + len(accepted) == PUSHES_9C,
+          f"9c: codes other than 0 and ELIMIT: {codes}")
+    check(rejected, "9c: no push was refused with ELIMIT")
+    st = peer_control(ctl, "state")
+    check(st["push_status"]["rejected_count"] == len(rejected),
+          f"9c: {len(rejected)} ELIMIT here, the peer rejected "
+          f"{st['push_status']['rejected_count']}")
+    stored = sorted(int(n[1:]) for n in st["contents"] if n.startswith("c"))
+    check(stored == accepted,
+          f"9c: the peer stored {stored}, it accepted {accepted}")
+    for k in accepted:
+        _, got = TensorClient(PinnedChannel(socks[k])).pull(f"c{k}", device=dev)
+        check(got is not None and torch.equal(u8(got[0]), u8(act)),
+              f"9c {k}: bytes differ")
+    _sockets_at_rest(socks, "9c")
+    _peer_at_rest(peer_control(ctl, "state"), "9c")
+    out = {"accepted": len(accepted), "rejected": len(rejected),
+           "peer_rejected_count": st["push_status"]["rejected_count"]}
+    print(f"serve/9c: TensorStore.Push limited to {LIMIT_9C}, 50 ms each: of "
+          f"{PUSHES_9C} concurrent pushes {len(accepted)} stored "
+          f"byte-identical, {len(rejected)} refused with ELIMIT, as the "
+          f"peer counts; no refused push stored; every client endpoint and "
+          f"the send arena at rest {tag}")
+    return out
+
+
+def serve_stop(ctl, socks, big, tag: str):
+    """9d: the peer stops while 8 pushes of 64 MiB are in flight."""
+    peer_control(ctl, "delay", seconds=DELAY_9D)
+    peer_control(ctl, "stop", after_s=STOP_AFTER_9D)
+    ends = {}
+
+    def push(k):
+        cntl = Controller()
+        cntl.timeout_ms = DEADLINE_9D_MS
+        cntl._outbound_tensors = [big]
+        call_on_socket(socks[k], "TensorStore.Push", cntl,
+                       wire.TensorPushRequest(name=f"d{k}"),
+                       wire.TensorPushResponse())
+        ends[k] = (time.time(), cntl.error_code)
+
+    t0 = time.time()
+    _run_threads([lambda k=k: push(k) for k in range(PUSHES_9D)], "9d")
+    codes = sorted({c for _, c in ends.values()})
+    check(all(c in (errors.ECLOSE, errors.EFAILEDSOCKET) for c in codes),
+          f"9d: the pushes ended with {codes}, not a socket error")
+    last = max(t for t, _ in ends.values())
+    check(last - t0 < DEADLINE_9D_MS / 1e3 / 2,
+          f"9d: the last push failed {last - t0:.3f} s after it started")
+    _sockets_at_rest(socks, "9d")
+    out = {"codes": codes, "last_failure_after_start_s": round(last - t0, 3)}
+    print(f"serve/9d: {PUSHES_9D} pushes of {list(big.shape)} {big.dtype} "
+          f"in flight when the peer stopped {STOP_AFTER_9D} s in: every one "
+          f"ended with {codes} within {out['last_failure_after_start_s']} s "
+          f"of its start (deadline {DEADLINE_9D_MS / 1e3} s); every client "
+          f"endpoint and the send arena at rest {tag}")
+    return out, last
+
+
+def phase_serve(tag: str, gen, naming: dict):
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    act = torch.randn((BATCH, SEQ, BIG.d_model), dtype=torch.bfloat16,
+                      device=dev, generator=gen)
+    big = torch.randn((32 << 20,), dtype=torch.bfloat16, device=dev,
+                      generator=gen)
+    proc, port = start_peer()
+    ctl = socks = None
+    result, rc = {}, None
+    try:
+        ctl = Channel()
+        check(ctl.init(f"127.0.0.1:{port}") == 0, "control channel init")
+        peer_control(ctl, "to_card", on=True)
+        # 9b first: the peer's latency recorder then holds its pushes only
+        result["concurrent"], socks = serve_concurrent(port, ctl, act, naming,
+                                                       tag)
+        result["one_channel"] = serve_one_channel(port, ctl, act, tag)
+        result["connections"] = serve_many_connections(port, ctl, gen, tag)
+        result["limiter"] = serve_limited(ctl, socks, act, tag)
+        st = peer_control(ctl, "state")
+        check(st["cuda_device_count"] == 1,
+              f"9e: cuda_device_count reads {st['cuda_device_count']}")
+        print(f"serve/9e: the peer's cuda_device_count is "
+              f"{st['cuda_device_count']} {tag}")
+        result["cuda_device_count"] = st["cuda_device_count"]
+        result["stop"], last = serve_stop(ctl, socks[:PUSHES_9D], big, tag)
+        rc = stop_peer(proc)
+        said = proc.stdout.read().split()
+        proc = None
+        check(rc == 0, f"9d: the peer exited with code {rc}")
+        check(said[:2] == ["peer", "stopped"],
+              f"9d: the peer did not say when it stopped: {said}")
+        stopped_at, in_flight = float(said[2]), int(said[3])
+        check(in_flight >= 1, "9d: no push was in its handler at the stop")
+        result["stop"].update(
+            pushes_in_handlers_at_stop=in_flight,
+            last_failure_after_stop_ms=round((last - stopped_at) * 1e3, 3))
+        print(f"serve/9d: the peer stopped with {in_flight} pushes in their "
+              f"handlers; the last push failed "
+              f"{result['stop']['last_failure_after_stop_ms']} ms after the "
+              f"stop; the peer exited 0 {tag}")
+    finally:
+        for sock in socks or []:
+            sock.recycle()
+        if ctl is not None:
+            ctl.close()
+        if proc is not None:
+            stop_peer(proc)
+    result["seconds"] = round(time.perf_counter() - t_start, 1)
+    print(f"serve: phase took {result['seconds']} s {tag}")
+    print("server " + json.dumps(result))
+    return result
 
 
 def main() -> int:
@@ -1167,7 +1630,8 @@ def main() -> int:
     phase_card_vs_cpu(tag)
     phase_cross_process(tag, gen)
     phase_train(tag)
-    phase_naming(tag, gen)
+    naming = phase_naming(tag, gen)
+    phase_serve(tag, gen, naming)
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "
