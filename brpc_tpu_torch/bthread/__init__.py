@@ -1,7 +1,7 @@
 """bthread — the concurrency layer: the work-stealing task scheduler with
 idle hooks, butex wait and wake, the timer thread, versioned call ids,
-and the mutex, condition and countdown event built on butex, as in
-brpc_tpu/bthread. Execution queues come with streams.
+execution queues, and the mutex, condition and countdown event built on
+butex, as in brpc_tpu/bthread.
 """
 from __future__ import annotations
 
@@ -16,6 +16,11 @@ from brpc_tpu_torch.bthread.butex import (  # noqa: F401
     butex_wait,
     butex_wake,
     butex_wake_all,
+)
+from brpc_tpu_torch.bthread.execution_queue import (  # noqa: F401
+    ExecutionQueue,
+    TaskIterator,
+    execution_queue_start,
 )
 from brpc_tpu_torch.bthread.parking_lot import ParkingLot  # noqa: F401
 from brpc_tpu_torch.bthread.task_control import (  # noqa: F401

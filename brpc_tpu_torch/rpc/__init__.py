@@ -2,8 +2,8 @@
 (naming services, load balancers, retries, backup requests, the circuit
 breaker and the combo channels), the reference-grade server (acceptor,
 input messenger and event dispatcher, method status and concurrency
-limiters), the protocol registry with the tpu_std framing, the device
-transport and the TensorStore service."""
+limiters), the protocol registry with the tpu_std and stream framings,
+streams, the device transport and the TensorStore service."""
 
 from brpc_tpu_torch.rpc.channel import Channel, ChannelOptions  # noqa: F401
 from brpc_tpu_torch.rpc.combo_channels import (  # noqa: F401
@@ -19,3 +19,10 @@ from brpc_tpu_torch.rpc.combo_channels import (  # noqa: F401
 from brpc_tpu_torch.rpc.controller import Controller, RetryPolicy  # noqa: F401
 from brpc_tpu_torch.rpc.server import Server, ServerOptions  # noqa: F401
 from brpc_tpu_torch.rpc.service import Service, rpc_method  # noqa: F401
+from brpc_tpu_torch.rpc.stream import (  # noqa: F401
+    Stream,
+    StreamInputHandler,
+    StreamOptions,
+    stream_accept,
+    stream_create,
+)

@@ -20,8 +20,13 @@ reaches the endpoint that retains the send. The sends of the other
 attempts are released by the controller: when their late response
 arrives, or when their connection fails (ROADMAP queue C #9).
 
-Left out: rpcz spans, streams, HTTP fields, compression other than none
-(the server refuses it), and authentication.
+Streams: ``_request_stream`` is the client's stream riding the request;
+the winning response binds it to the connection that served it. On the
+server, ``_remote_stream_id`` is the client's stream id and
+``_accepted_stream`` the stream the handler accepted.
+
+Left out: rpcz spans, HTTP fields, compression other than none (the
+server refuses it), and authentication.
 """
 from __future__ import annotations
 
@@ -109,6 +114,11 @@ class Controller:
         self._rpc_meta = None
         self._response_meta = None
         self._response_rpc_meta = None
+        # streams (rpc/stream.py): the client's stream riding the request;
+        # on the server the client's stream id and the accepted stream
+        self._request_stream = None
+        self._remote_stream_id = 0
+        self._accepted_stream = None
 
     # -- error state -------------------------------------------------------
     @property
@@ -234,6 +244,11 @@ class Controller:
         self._current_sock = sock
         self.remote_side = sock.remote_side
         self._winner_cid = meta.correlation_id
+        if meta.stream_id and self._request_stream is not None:
+            # the stream was accepted: learn the peer's id, and send on
+            # the connection that served this (the winning) attempt
+            self._request_stream.peer_id = meta.stream_id
+            self._request_stream.bind(sock)
         if meta.response.error_code != 0:
             self.set_failed(meta.response.error_code, meta.response.error_text)
         else:

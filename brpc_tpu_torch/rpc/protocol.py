@@ -8,8 +8,9 @@ one that matched; ``process_inline`` marks a protocol whose messages run
 at once in the reading task, in wire order (the device handshake must be
 done before the first request of its connection runs).
 
-The port registers two protocols: ``tpu_std`` (rpc/tpu_std_protocol.py)
-and ``device_handshake`` (rpc/tensor_service.py).
+The port registers three protocols: ``tpu_std`` (rpc/tpu_std_protocol.py),
+``streaming`` (rpc/streaming_protocol.py) and ``device_handshake``
+(rpc/tensor_service.py).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Callable, Dict, List, Optional
 class ProtocolType(IntEnum):
     UNKNOWN = 0
     TPU_STD = 1  # framed pb-meta protocol (baidu_std's role)
+    STREAMING = 2  # stream frames (streaming_rpc's role)
     TENSOR = 9  # the device handshake of the tensor lane
 
 
@@ -110,6 +112,7 @@ def find_protocol_by_name(name: str) -> Optional[Protocol]:
 # the order a server port tries the protocols in, whatever the import order
 _PARSE_PRIORITY = {
     ProtocolType.TPU_STD: 0,
+    ProtocolType.STREAMING: 1,
     ProtocolType.TENSOR: 2,
 }
 
@@ -131,6 +134,7 @@ def globally_initialize():
     with _init_lock:
         if _globally_initialized:
             return
+        from brpc_tpu_torch.rpc import streaming_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import tensor_service  # noqa: F401
         from brpc_tpu_torch.rpc import tpu_std_protocol  # noqa: F401
         _globally_initialized = True

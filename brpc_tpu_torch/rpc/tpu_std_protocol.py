@@ -157,6 +157,8 @@ def pack_request(payload: bytes, cntl: Controller, correlation_id: int) -> IOBuf
         meta.request.timeout_ms = remain_ms
     meta.correlation_id = correlation_id
     meta.compress_type = cntl.compress_type
+    if cntl._request_stream is not None:
+        meta.stream_id = cntl._request_stream.stream_id
     attachment = cntl.request_attachment
     if cntl._outbound_tensors:
         # the connection's DeviceEndpoint (or a per-call one) fills
@@ -204,6 +206,8 @@ def send_rpc_response(sock, correlation_id: int, cntl: Controller,
     if response is not None and not cntl.failed():
         payload = response.SerializeToString()
     meta.compress_type = cntl.compress_type
+    if cntl._accepted_stream is not None:
+        meta.stream_id = cntl._accepted_stream.stream_id
     sock.write(pack_frame(meta, payload, attachment))
 
 
@@ -225,6 +229,7 @@ def process_request(msg: RpcMessage):
     cntl.request_attachment = msg.attachment
     cntl._server_socket = sock
     cntl._rpc_meta = meta
+    cntl._remote_stream_id = meta.stream_id
     cntl._response_meta = RpcMeta()
     cntl.server_start_time = time.monotonic()
     if meta.request.timeout_ms > 0:

@@ -2,8 +2,8 @@
 """Smoke run of brpc_tpu_torch (the PyTorch/CUDA port) on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``python3 chip_smoke.py --peer`` is the second process of phases 6, 8
-and 9; the script starts it itself.)
+(``python3 chip_smoke.py --peer`` is the second process of phases 6, 8,
+9 and 10; the script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -90,7 +90,24 @@ unavailable, or when the port is not beside it:
             ACK 9b's tensors through one device Channel (one connection),
             as many at once as its send window holds: byte-identical, at
             rest. More at once would stall on the window (ROADMAP queue C
-            #12).
+            #11);
+10. streams — one ``--peer`` whose stream service accepts with a 64 MiB
+            window, lands each message on its card and echoes it back from
+            there. Through a plain Channel this process opens a stream and
+            makes 16 ``write_tensor`` calls of 4 MiB bfloat16 chunks from
+            its card (64 MiB), flipping each chunk in place right after its
+            call; the echoes land on the card bit-equal to the bytes at the
+            calls. Prints the one-way rate (to the peer's last landing) and
+            the round-trip rate (to the last echo landed here), both
+            windows' unconsumed bytes at 0, stream_count back to 0 on both
+            sides after close, and that the peer's on_closed ran;
+11. trace  — a thread takes ``cuda_trace(1.0)`` while this one runs phase
+            3's forward in a loop, one at a time, a marker kernel after
+            each. From the zipped Chrome trace: the 10 kernels with the
+            most device time, the kernels launched per forward (between
+            markers), the kernel time per forward, the busy share of the
+            window (the union of kernel intervals) and its longest idle
+            gaps.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -98,6 +115,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import errno
 import io
 import json
 import math
@@ -108,9 +126,11 @@ import subprocess
 import sys
 import threading
 import time
+import zipfile
 
 import torch
 
+from brpc_tpu_torch.builtin.profilers import cuda_trace
 from brpc_tpu_torch.butil import flags
 from brpc_tpu_torch.entry import dryrun_multichip
 from brpc_tpu_torch.parallel import run_ranks
@@ -124,6 +144,10 @@ from brpc_tpu_torch.rpc import (
     SelectiveChannel,
     Server,
     ServerOptions,
+    StreamInputHandler,
+    StreamOptions,
+    stream_accept,
+    stream_create,
 )
 from brpc_tpu_torch.rpc import cuda_ipc_transfer, errors
 from brpc_tpu_torch.rpc.channel import call_on_socket, get_client_messenger
@@ -427,8 +451,9 @@ class SmokePeer(Service):
     thread count and TensorStore.Push's method status (as JSON in the
     response attachment)."""
 
-    def __init__(self, store: TensorStoreService):
+    def __init__(self, store: TensorStoreService, streams: "SmokeStreams"):
         self.store = store
+        self.streams = streams
         self.stopped_at = None
         self.stop_concurrency = None
 
@@ -493,6 +518,7 @@ class SmokePeer(Service):
             # the free blocks of each size class, of every pool made
             "pool_free": {str(dev): {str(k): v for k, v in pool.stats().items()}
                           for dev, pool in list(dt._default_pools.items())},
+            "streams": self.streams.state(),
             "push_status": {
                 "concurrency": push.concurrency,
                 "rejected_count": push.rejected_count,
@@ -544,10 +570,11 @@ def peer_main() -> int:
         print("chip_smoke --peer: CUDA is not available", file=sys.stderr)
         return 2
     store = SmokeStore()
-    side = SmokePeer(store)
+    streams = SmokeStreams()
+    side = SmokePeer(store, streams)
     srv = Server(ServerOptions(num_threads=PEER_THREADS))
-    check(srv.add_service(store) == 0, "peer add_service")
-    check(srv.add_service(side) == 0, "peer add_service")
+    for svc in (store, side, streams):
+        check(srv.add_service(svc) == 0, "peer add_service")
     check(srv.start("127.0.0.1:0") == 0, "peer server start")
     arena = dt.default_send_arena()  # named here: a killed peer leaves it
     print(f"peer ready {srv.listen_endpoint.port} "
@@ -1378,7 +1405,7 @@ def serve_one_channel(port: int, ctl, act, tag: str):
     """9f: threads pull + ACK 9b's tensors through one device Channel (one
     connection), as many at once as the connection's send window holds:
     more would wait in the peer's prepare_send and hold the worker that
-    reads the connection (ROADMAP queue C #12)."""
+    reads the connection (ROADMAP queue C #11)."""
     dev = torch.device("cuda")
     nbytes = act.numel() * act.element_size()
     pullers = dt.DEFAULT_WINDOW_BYTES // nbytes
@@ -1537,7 +1564,11 @@ def serve_stop(ctl, socks, big, tag: str):
     t0 = time.time()
     _run_threads([lambda k=k: push(k) for k in range(PUSHES_9D)], "9d")
     codes = sorted({c for _, c in ends.values()})
-    check(all(c in (errors.ECLOSE, errors.EFAILEDSOCKET) for c in codes),
+    # the stop reaches a push as a read's EOF (ECLOSE), a failed write
+    # (EFAILEDSOCKET) or a read's own errno when the peer reset the
+    # connection with bytes still unread (ECONNRESET)
+    check(all(c in (errors.ECLOSE, errors.EFAILEDSOCKET, errno.ECONNRESET)
+              for c in codes),
           f"9d: the pushes ended with {codes}, not a socket error")
     last = max(t for t, _ in ends.values())
     check(last - t0 < DEADLINE_9D_MS / 1e3 / 2,
@@ -1607,6 +1638,359 @@ def phase_serve(tag: str, gen, naming: dict):
     return result
 
 
+# -- phase 10: streams between two processes --------------------------------
+
+# stream_lane_bench's shape (brpc_tpu/bench.py:310-380): 16 chunks of 4 MiB
+# through a 64 MiB window, so no write waits for the window
+STREAM_CHUNK = (2048, 1024)  # bfloat16: 4 MiB
+STREAM_CHUNKS = 16
+STREAM_WINDOW = 64 << 20
+STREAM_WAIT_S = 120
+
+
+def land(msg, shape, dev) -> torch.Tensor:
+    """A stream message's bytes as a bfloat16 tensor on the card."""
+    host = torch.frombuffer(msg.copy_to_bytes(), dtype=torch.bfloat16)
+    return host.view(shape).to(dev)
+
+
+class LandAndEcho(StreamInputHandler):
+    """The peer's handler: lands each chunk on its card, echoes it back
+    from there, and notes when the last one landed and when it closed."""
+
+    def __init__(self, owner: "SmokeStreams"):
+        self.owner = owner
+
+    def on_received_messages(self, stream, messages):
+        for m in messages:
+            x = land(m, STREAM_CHUNK, torch.device("cuda"))
+            torch.cuda.synchronize()
+            with self.owner.lock:
+                self.owner.landed += 1
+                self.owner.landed_at = time.time()
+                self.owner.landed_on = str(x.device)
+            check(stream.write_tensor(x) == 0, "peer: echo write failed")
+
+    def on_closed(self, stream):
+        with self.owner.lock:
+            self.owner.closed += 1
+
+
+class SmokeStreams(Service):
+    """The peer's stream service (examples/streaming_echo.py's shape):
+    accepts a stream with a 64 MiB window and echoes what lands."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.accepted = []
+        self.landed, self.landed_at, self.landed_on = 0, None, None
+        self.closed = 0
+
+    @rpc_method(wire.EchoRequest, wire.EchoResponse)
+    def Open(self, cntl, request, response, done):
+        s = stream_accept(cntl, StreamOptions(handler=LandAndEcho(self),
+                                              max_buf_size=STREAM_WINDOW))
+        if s is None:
+            cntl.set_failed(errors.EINVAL, "no stream in request")
+        else:
+            with self.lock:
+                self.accepted.append(s)
+        response.message = "accepted"
+        done()
+
+    def state(self) -> dict:
+        with self.lock:
+            return {"accepted": len(self.accepted),
+                    "unconsumed": [s.unconsumed_bytes for s in self.accepted],
+                    "open": [not s.closed for s in self.accepted],
+                    "landed": self.landed, "landed_at": self.landed_at,
+                    "landed_on": self.landed_on, "on_closed": self.closed,
+                    "stream_count": find_exposed("stream_count").get_value()}
+
+
+class LandEchoes(StreamInputHandler):
+    """The client's handler: lands every echo on the card."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.got = []
+        self.done = threading.Event()
+        self.done_at = None
+        self.closed = threading.Event()
+
+    def on_received_messages(self, stream, messages):
+        landed = [land(m, STREAM_CHUNK, torch.device("cuda"))
+                  for m in messages]
+        torch.cuda.synchronize()
+        with self.lock:
+            self.got.extend(landed)
+            if len(self.got) >= STREAM_CHUNKS and not self.done.is_set():
+                self.done_at = time.time()
+                self.done.set()
+
+    def on_closed(self, stream):
+        self.closed.set()
+
+
+def phase_streams(tag: str, gen):
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    chunks = [torch.randn(STREAM_CHUNK, dtype=torch.bfloat16, device=dev,
+                          generator=gen) for _ in range(STREAM_CHUNKS)]
+    expected = [c.clone() for c in chunks]
+    nbytes = sum(c.numel() * c.element_size() for c in chunks)
+    proc, port = start_peer()
+    ch = stream = None
+    failed = True
+    try:
+        ch = Channel()
+        check(ch.init(f"127.0.0.1:{port}") == 0, "stream channel init")
+        count0 = find_exposed("stream_count").get_value()
+        handler = LandEchoes()
+        cntl = Controller()
+        cntl.timeout_ms = 60000
+        stream = stream_create(cntl, StreamOptions(handler=handler,
+                                                   max_buf_size=STREAM_WINDOW))
+        ch.call_method("SmokeStreams.Open", cntl,
+                       wire.EchoRequest(message="open"), wire.EchoResponse())
+        check(not cntl.failed(), f"stream open: {cntl.error_text}")
+        check(stream.wait_connected(30), "the stream was not bound")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for c in chunks:
+            check(stream.write_tensor(c) == 0, "stream write_tensor failed")
+            # in place, on the card, right after the call: the bytes sent
+            # are the ones the chunk held at the call
+            u8(c).bitwise_not_()
+        check(handler.done.wait(STREAM_WAIT_S),
+              f"{len(handler.got)} of {STREAM_CHUNKS} echoes came back")
+        round_trip = handler.done_at - t0
+        st = peer_control(ch, "state")["streams"]
+        one_way = st["landed_at"] - t0
+        on = st["landed_on"]
+        check(st["landed"] == STREAM_CHUNKS and on.startswith("cuda"),
+              f"the peer landed {st['landed']} on {on}")
+        check(all(y.device.type == "cuda" for y in handler.got),
+              "an echo did not land on the card")
+        check(all(torch.equal(u8(y), u8(x))
+                  for y, x in zip(handler.got, expected)),
+              "the echoes differ from what was written")
+        check(not any(torch.equal(u8(y), u8(c))
+                      for y, c in zip(handler.got, chunks)),
+              "a change made after write_tensor reached the peer")
+        _wait(lambda: stream.unconsumed_bytes == 0, 30,
+              "the client's window at rest")
+        _wait(lambda: peer_control(ch, "state")["streams"]["unconsumed"]
+              == [0], 30, "the peer's window at rest")
+        count_open = find_exposed("stream_count").get_value()
+        stream.close()
+        check(handler.closed.wait(30), "the client's on_closed did not run")
+        _wait(lambda: peer_control(ch, "state")["streams"]["on_closed"] == 1,
+              30, "the peer's on_closed")
+        st = peer_control(ch, "state")["streams"]
+        count1 = find_exposed("stream_count").get_value()
+        check(count1 == count0 and st["stream_count"] == 0
+              and st["open"] == [False],
+              f"stream_count {count1} here (was {count0}), "
+              f"{st['stream_count']} in the peer")
+        print(f"streams: {STREAM_CHUNKS} write_tensor of bfloat16"
+              f"{list(STREAM_CHUNK)} ({nbytes} B) from the card to the "
+              f"peer's card in {one_way * 1e3:.3f} ms, "
+              f"{nbytes / one_way / 1e9:.3f} GB/s one way; echoed back and "
+              f"landed here in {round_trip * 1e3:.3f} ms, "
+              f"{nbytes / round_trip / 1e9:.3f} GB/s round trip; "
+              f"bit-equal {tag}")
+        print(f"streams: each chunk flipped in place right after its "
+              f"write_tensor came back with its old bytes; unconsumed_bytes "
+              f"0 here and {st['unconsumed']} in the peer; stream_count "
+              f"{count_open} -> {count1} here and {st['stream_count']} in the "
+              f"peer after close; the peer's on_closed ran "
+              f"({st['on_closed']}); phase took "
+              f"{time.perf_counter() - t_start:.1f} s {tag}")
+        print("streams " + json.dumps({
+            "bytes": nbytes, "one_way_ms": round(one_way * 1e3, 3),
+            "one_way_GBps": round(nbytes / one_way / 1e9, 3),
+            "round_trip_ms": round(round_trip * 1e3, 3),
+            "round_trip_GBps": round(nbytes / round_trip / 1e9, 3)}))
+        failed = False
+    finally:
+        if stream is not None:
+            stream.close()
+        if ch is not None:
+            ch.close()
+        rc = stop_peer(proc)
+    check(failed or rc == 0, f"the stream peer exited with code {rc}")
+
+
+# -- phase 11: the card trace -------------------------------------------------
+
+TRACE_S = 1.0
+MARK_CYCLES = 1000  # torch.cuda._sleep between forwards: ~1 us on the card
+MARKER = "spin_kernel"  # its kernel's name (aten/src/ATen/cuda/Sleep.cu)
+
+
+# kernel kinds by name, first match wins (copies run as elementwise kernels)
+KERNEL_KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+                ("copy", ("copy",)), ("scan", ("scan",)),
+                ("reduce", ("reduce",)), ("softmax", ("softmax",)),
+                ("elementwise", ("elementwise",)))
+
+
+def kernel_kind(name: str) -> str:
+    for kind, keys in KERNEL_KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def summarize_trace(body: bytes) -> dict:
+    """The forward's device time from cuda_trace's zipped Chrome trace:
+    kernels by device time and by kind, kernels per forward (between the
+    markers the loop launches after each forward), the busy share of the
+    window (the union of kernel intervals over it) and its longest idle
+    gaps with the kernels on either side."""
+    with zipfile.ZipFile(io.BytesIO(body)) as zf:
+        (name,) = zf.namelist()
+        events = json.loads(zf.read(name))["traceEvents"]
+    window = max((e for e in events if e.get("cat") == "Trace"),
+                 key=lambda e: e["dur"])
+    w0, w1 = window["ts"], window["ts"] + window["dur"]
+    kernels = sorted(
+        (e for e in events if e.get("cat") == "kernel"
+         and e["ts"] < w1 and e["ts"] + e["dur"] > w0),
+        key=lambda e: e["ts"])
+    memcpy_us = sum(e["dur"] for e in events if e.get("cat") == "gpu_memcpy"
+                    and w0 <= e["ts"] < w1)
+    # cuBLAS launches with cuLaunchKernel, the rest with cudaLaunchKernel
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    host_ops = [e for e in events if e.get("cat") == "cpu_op"]
+
+    def op_of(kernel) -> str:
+        """The innermost host op that launched the kernel, or its name."""
+        launch = launches.get(kernel.get("args", {}).get("correlation"))
+        inner = None
+        if launch is not None:
+            for op in host_ops:
+                if (op["tid"] == launch["tid"]
+                        and op["ts"] <= launch["ts"] <= op["ts"] + op["dur"]
+                        and (inner is None or op["dur"] < inner["dur"])):
+                    inner = op
+        return inner["name"] if inner is not None else kernel["name"][:60]
+
+    marks = [k for k, e in enumerate(kernels) if MARKER in e["name"]]
+    work = [e for e in kernels if MARKER not in e["name"]]
+    # idle gaps: where no kernel runs, from the window's start to its end
+    gaps, end, last = [], w0, None
+    for e in work:
+        if e["ts"] > end:
+            gaps.append((e["ts"] - end, last, e))
+        if e["ts"] + e["dur"] > end:
+            end, last = min(e["ts"] + e["dur"], w1), e
+    if w1 > end:
+        gaps.append((w1 - end, last, None))
+    busy_us = (w1 - w0) - sum(g for g, _, _ in gaps)
+    fwds = [kernels[marks[i] + 1:marks[i + 1]] for i in range(len(marks) - 1)]
+    per_fwd = [len(f) for f in fwds]
+    by_name, by_kind = {}, {}
+    for e in work:
+        n, t, first = by_name.get(e["name"], (0, 0.0, e))
+        by_name[e["name"]] = (n + 1, t + e["dur"], first)
+    for f in fwds:
+        for e in f:
+            n, t = by_kind.get(kernel_kind(e["name"]), (0, 0.0))
+            by_kind[kernel_kind(e["name"])] = (n + 1, t + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    fwd_us = sum(t for _, t in by_kind.values())
+    return {
+        "window_ms": round((w1 - w0) / 1e3, 3),
+        "kernels": len(work), "forwards": len(fwds),
+        "kernels_per_forward": (statistics.median(per_fwd)
+                                if per_fwd else None),
+        "kernels_per_forward_range": ([min(per_fwd), max(per_fwd)]
+                                      if per_fwd else None),
+        "forward_device_ms": (round(statistics.median(
+            sum(e["dur"] for e in f) for f in fwds) / 1e3, 3)
+            if fwds else None),
+        "per_forward_by_kind": {
+            k: {"launches": round(n / len(fwds), 1),
+                "ms": round(t / len(fwds) / 1e3, 3),
+                "share": round(t / fwd_us, 4)}
+            for k, (n, t) in sorted(by_kind.items(),
+                                    key=lambda kv: -kv[1][1])},
+        "busy_ms": round(busy_us / 1e3, 3),
+        "busy_share": round(busy_us / (w1 - w0), 4),
+        "memcpy_ms": round(memcpy_us / 1e3, 3),
+        "longest_idle_gaps": [
+            {"ms": round(g / 1e3, 3),
+             "after": op_of(a) if a is not None else "window start",
+             "before": op_of(b) if b is not None else "window end"}
+            for g, a, b in sorted(gaps, key=lambda g: -g[0])[:5]],
+        "idle_gaps_over_100us": sum(1 for g, _, _ in gaps if g > 100),
+        "top10": [{"name": n[:120], "op": op_of(first), "count": c,
+                   "ms": round(t / 1e3, 3),
+                   "share_of_busy": round(t / busy_us, 4) if busy_us else None}
+                  for n, (c, t, first) in top],
+    }
+
+
+def phase_trace(tokens: torch.Tensor, tag: str):
+    """A thread takes cuda_trace while this one runs phase 3's forward in
+    a loop, one forward at a time, a marker kernel after each."""
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(BIG, gen, device=dev)
+    for _ in range(FWD_WARMUP):
+        forward_local(params, tokens, BIG)
+    torch.cuda.synchronize()
+    out = {}
+    tracer = threading.Thread(
+        target=lambda: out.update(trace=cuda_trace(TRACE_S)))
+    tracer.start()
+    forwards, fwd_s = 0, []
+    while tracer.is_alive():
+        t0 = time.perf_counter()
+        forward_local(params, tokens, BIG)
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t0)
+        forwards += 1
+    tracer.join()
+    del params
+    ctype, body = out["trace"]
+    check(ctype == "application/zip", f"cuda_trace gave {ctype}: {body!r}")
+    summary = summarize_trace(body)
+    check(summary["kernels"] > 0, "the trace holds no kernel")
+    check(summary["forwards"] >= 1, "the trace holds no whole forward")
+    print(f"trace: cuda_trace({TRACE_S}) while {forwards} forwards ran "
+          f"(host median {statistics.median(fwd_s) * 1e3:.3f} ms each, the "
+          f"profiler's host cost included): "
+          f"a {len(body)} B zip, window {summary['window_ms']} ms, "
+          f"{summary['kernels']} kernels, {summary['forwards']} whole "
+          f"forwards of {summary['kernels_per_forward']} kernels "
+          f"(range {summary['kernels_per_forward_range']}), "
+          f"{summary['forward_device_ms']} ms of kernel time per forward; "
+          f"the card was busy {summary['busy_ms']} ms, "
+          f"{summary['busy_share']:.1%} of the window; "
+          f"{summary['memcpy_ms']} ms of copies by the copy engines; "
+          f"{summary['idle_gaps_over_100us']} idle gaps over 100 us {tag}")
+    for kind, row in summary["per_forward_by_kind"].items():
+        print(f"trace per forward (mean): {kind} {row['launches']} "
+              f"launches, {row['ms']} ms ({row['share']:.1%} of its kernel "
+              f"time)")
+    for k, row in enumerate(summary["top10"], 1):
+        print(f"trace top {k}: {row['ms']} ms in {row['count']} launches "
+              f"({row['share_of_busy']:.1%} of busy) by {row['op']}: "
+              f"{row['name']}")
+    for row in summary["longest_idle_gaps"]:
+        print(f"trace idle gap: {row['ms']} ms after {row['after']} "
+              f"before {row['before']}")
+    print(f"trace: phase took {time.perf_counter() - t_start:.1f} s {tag}")
+    print("trace " + json.dumps(summary))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1632,6 +2016,8 @@ def main() -> int:
     phase_train(tag)
     naming = phase_naming(tag, gen)
     phase_serve(tag, gen, naming)
+    phase_streams(tag, gen)
+    phase_trace(tokens, tag)
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "

@@ -20,10 +20,10 @@
   its connections, and exits 0.
 * No thread per connection: 64 connections to a port server add fewer
   than 8 threads to the process.
-* ROADMAP queue C #11 (repaired): a response meta carrying the SHUTDOWN
+* A repaired fault of the port: a response meta carrying the SHUTDOWN
   bit marks its socket lame duck in both packages' ``parse``, and a
   balanced port channel then sends new calls to the other server.
-* ROADMAP queue C #12 (both packages): a Pull that finds its window full
+* ROADMAP queue C #11 (both packages): a Pull that finds its window full
   holds its worker until the window's timeout, and the ACK that would
   open the window waits behind it.
 * A DeviceEndpoint reached from many threads at once ends at rest.
@@ -509,7 +509,7 @@ def test_many_connections_add_no_threads(servers):
             sock.recycle()
 
 
-# -- queue C #11: the SHUTDOWN bit ---------------------------------------------
+# -- the SHUTDOWN bit ---------------------------------------------------------
 
 def _shutdown_frame(cid: int) -> bytes:
     meta = wire.RpcMeta()
@@ -576,7 +576,7 @@ def test_balanced_channel_leaves_a_lame_duck():
             srv.stop()
 
 
-# -- queue C #12: a Pull waiting for its window holds its worker --------------
+# -- queue C #11: a Pull waiting for its window holds its worker --------------
 
 def _one_window_store(base):
     class OneWindow(base):
