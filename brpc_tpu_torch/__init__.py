@@ -13,9 +13,14 @@ to find:
   TensorStore service), the client and the server;
 * ``bthread`` and ``bvar`` — the task-control workers, butex, timers and
   call ids; named metrics, windows and latency recorders;
+* ``builtin`` and ``json2pb`` — the console a server serves over HTTP
+  on its RPC port, its profilers (the card trace on ``/hotspots/tpu``),
+  and JSON to and from the port's messages;
 * ``entry`` — ``entry(device=None)`` and ``dryrun_multichip``, the
   counterparts of ``__graft_entry__``'s.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA a request for the card raises.
 """
+
+__version__ = "0.1.0"

@@ -1,8 +1,10 @@
 """flags — the runtime configuration registry.
 
-Copy of the subset of brpc_tpu/butil/flags.py that the port needs: typed
-flags defined once, read with ``get_flag``, edited live with ``set_flag``,
-and an environment override ``BRPC_TPU_<NAME>`` read when the flag is
+Copy of brpc_tpu/butil/flags.py: typed flags (int, float, bool,
+string) defined once, read with ``get_flag`` or ``flag`` (with its
+default, help and whether it is reloadable), listed with ``all_flags``,
+edited live with ``set_flag`` (the console's ``/flags?setvalue=``), and
+an environment override ``BRPC_TPU_<NAME>`` read when the flag is
 defined. An unparsable or rejected override keeps the default. The tensor
 lane defines its flags in device_transport.py, the circuit breaker its
 own in circuit_breaker.py, with the reference's defaults.
@@ -66,12 +68,25 @@ def define_int(name: str, default: int, help_: str = "", **kw) -> Flag:
     return _define(name, int(default), help_, int, **kw)
 
 
+def define_float(name: str, default: float, help_: str = "", **kw) -> Flag:
+    return _define(name, float(default), help_, float, **kw)
+
+
 def define_bool(name: str, default: bool, help_: str = "", **kw) -> Flag:
     return _define(name, bool(default), help_, bool, **kw)
 
 
+def define_string(name: str, default: str, help_: str = "", **kw) -> Flag:
+    return _define(name, str(default), help_, str, **kw)
+
+
 def get_flag(name: str) -> Any:
     return _registry[name].value
+
+
+def flag(name: str) -> Flag:
+    """The flag itself; KeyError when none has the name."""
+    return _registry[name]
 
 
 def set_flag(name: str, value: Any) -> bool:
@@ -90,3 +105,8 @@ def set_flag(name: str, value: Any) -> bool:
             return False
         f.value = value
         return True
+
+
+def all_flags() -> Dict[str, Flag]:
+    with _lock:
+        return dict(_registry)

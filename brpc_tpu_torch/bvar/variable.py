@@ -1,10 +1,11 @@
 """Variable — a named, exposable metric and the global registry.
 
-Copy of the part of brpc_tpu/bvar/variable.py the client and the server
-use: a metric exposed under a unique name, found by it, hidden, and
-dumped in bulk (``dump_exposed``, the body of a vars page);
-``PassiveStatus`` computes its value with a callback. The Prometheus
-text and the set-by-hand status variable come with the console.
+Copy of the part of brpc_tpu/bvar/variable.py the port uses: a metric
+exposed under a unique name, found by it, listed, counted, hidden, and
+dumped in bulk (``dump_exposed``, the body of ``/vars``) or as
+Prometheus text (``dump_prometheus``, the body of ``/brpc_metrics``);
+``PassiveStatus`` computes its value with a callback. Left out: the
+set-by-hand status variable, which nothing of the port sets.
 """
 from __future__ import annotations
 
@@ -71,6 +72,16 @@ def find_exposed(name: str) -> Optional[Variable]:
         return _registry.get(name)
 
 
+def list_exposed() -> List[str]:
+    with _registry_lock:
+        return sorted(_registry.keys())
+
+
+def count_exposed() -> int:
+    with _registry_lock:
+        return len(_registry)
+
+
 def dump_exposed(filter_fn: Optional[Callable[[str], bool]] = None
                  ) -> List[Tuple[str, object]]:
     """(name, value) of every exposed variable, sorted by name."""
@@ -85,3 +96,32 @@ def dump_exposed(filter_fn: Optional[Callable[[str], bool]] = None
         except Exception as e:  # a broken callback must not break the dump
             out.append((name, f"<error: {e}>"))
     return out
+
+
+def _prom_label_escape(val) -> str:
+    """Prometheus label-value escaping: backslash, double quote and
+    newline."""
+    return (str(val).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def dump_prometheus() -> str:
+    """Prometheus text of every exposed scalar variable, and of every
+    variable whose value maps label tuples to scalars."""
+    lines = []
+    for name, value in dump_exposed():
+        metric = name.replace("-", "_").replace(".", "_").replace("/", "_")
+        if isinstance(value, bool):
+            value = int(value)
+        if isinstance(value, (int, float)):
+            lines.append(f"# TYPE {metric} gauge")
+            lines.append(f"{metric} {value}")
+        elif isinstance(value, dict):
+            lines.append(f"# TYPE {metric} gauge")
+            for labels, v in value.items():
+                if isinstance(v, (int, float)):
+                    label_s = ",".join(
+                        f'{k}="{_prom_label_escape(val)}"'
+                        for k, val in labels)
+                    lines.append(f"{metric}{{{label_s}}} {v}")
+    return "\n".join(lines) + "\n"

@@ -31,9 +31,14 @@ is attached before their first connect), and the channel keeps the
 endpoint that retains it. ``call_on_socket`` sends a call on one given
 connection; TensorClient sends that ACK with it.
 
+``protocol`` is ``tpu_std`` (the default) or ``http`` (requests as
+JSON, pipelined on a connection, rpc/http_protocol.py); any other is
+refused with EPROTONOTSUP. Channels of different protocols to one server
+do not share a connection.
+
 Left out of the reference's options: ``auth``, ``use_ssl`` and
-``ssl_verify`` (the port has no authenticator and no TLS), and protocols
-other than ``tpu_std``. Also left out: rpc_dump and the native runtime.
+``ssl_verify`` (the port has no authenticator and no TLS), and the other
+protocols. Also left out: rpc_dump and the native runtime.
 """
 from __future__ import annotations
 
@@ -48,7 +53,11 @@ from brpc_tpu_torch.device import DeviceLike
 from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.controller import Controller
 from brpc_tpu_torch.rpc.input_messenger import InputMessenger
-from brpc_tpu_torch.rpc.protocol import globally_initialize, list_server_protocols
+from brpc_tpu_torch.rpc.protocol import (
+    find_protocol_by_name,
+    globally_initialize,
+    list_server_protocols,
+)
 from brpc_tpu_torch.rpc.socket import Socket
 
 
@@ -92,8 +101,8 @@ def _start_call(channel, method_full_name: str, cntl: Controller, request,
                 response, done: Optional[Callable]):
     cntl._setup_call(channel, method_full_name, response, done)
     try:
-        cntl._request_payload = (request.SerializeToString()
-                                 if request is not None else b"")
+        cntl._request_payload = channel._protocol.serialize_request(request,
+                                                                    cntl)
     except Exception as e:
         cntl.set_failed(errors.EREQUEST, f"fail to serialize request: {e}")
         cntl._end_rpc(locked=False)
@@ -123,6 +132,7 @@ class Channel:
         self._init_done = False
         self._mapped_key = None  # our reference in the SocketMap
         self._mapped_sid = None
+        self._protocol = None
 
     def close(self):
         """Stop the naming service (its sockets are recycled), drop the
@@ -145,7 +155,7 @@ class Channel:
     def init(self, target, lb_name: str = "") -> int:
         """init('ip:port') for one server, or init('list://h1:p1,h2:p2',
         'rr') / init('file://...', 'la') and the like; 0 on success."""
-        if self.options.protocol != "tpu_std":
+        if not self._find_protocol():
             return errors.EPROTONOTSUP
         if "://" in str(target):
             return self.init_with_filter(str(target), lb_name, None)
@@ -163,7 +173,7 @@ class Channel:
         """A naming service whose nodes pass ``node_filter((endpoint,
         weight, tag))``; 0 on success, EINVAL for an unknown scheme or
         balancer, a malformed recover suffix or an unparsable list."""
-        if self.options.protocol != "tpu_std":
+        if not self._find_protocol():
             return errors.EPROTONOTSUP
         from brpc_tpu_torch.rpc.load_balancer import create_load_balancer
         from brpc_tpu_torch.rpc.naming_service import start_naming_service
@@ -180,6 +190,14 @@ class Channel:
             return errors.EINVAL
         self._init_done = True
         return 0
+
+    def _find_protocol(self) -> bool:
+        globally_initialize()
+        p = find_protocol_by_name(self.options.protocol)
+        if p is None or p.pack_request is None:
+            return False
+        self._protocol = p
+        return True
 
     # -- connections -------------------------------------------------------
     def _app_connect_factory(self):
@@ -273,9 +291,10 @@ class Channel:
                     if sock.ensure_connected(self._connect_timeout_s()) != 0:
                         return None, errors.EFAILEDSOCKET
                     return sock, 0
-            key = make_key(ep, app_connect_id=(
-                f"device:{self.options.device}"
-                if self.options.use_device_transport else ""))
+            key = make_key(ep, protocol=self.options.protocol,
+                           app_connect_id=(
+                               f"device:{self.options.device}"
+                               if self.options.use_device_transport else ""))
             smap = get_global_socket_map()
             sid = smap.insert(
                 ep, key,
@@ -352,10 +371,11 @@ class Channel:
 
 
 class _OneSocket:
-    """The channel of a call pinned to one connection."""
+    """The channel of a call pinned to one connection, over tpu_std."""
 
     def __init__(self, sock: Socket):
         self._sock = sock
+        self._protocol = find_protocol_by_name("tpu_std")
 
     def _select_socket(self, cntl: Controller):
         if self._sock.failed():

@@ -25,8 +25,14 @@ the winning response binds it to the connection that served it. On the
 server, ``_remote_stream_id`` is the client's stream id and
 ``_accepted_stream`` the stream the handler accepted.
 
-Left out: rpcz spans, HTTP fields, compression other than none (the
-server refuses it), and authentication.
+Each attempt is packed by the channel's protocol (``tpu_std`` or
+``http``); a protocol's ``on_packed`` hook runs under the socket's write
+lock as the request is queued (HTTP keeps its correlation ids in request
+order there). ``http_request`` and ``http_response`` are the HTTP
+messages of a call over HTTP, on either side.
+
+Left out: rpcz spans, compression other than none (the server refuses
+it), and authentication.
 """
 from __future__ import annotations
 
@@ -119,6 +125,9 @@ class Controller:
         self._request_stream = None
         self._remote_stream_id = 0
         self._accepted_stream = None
+        # http (http_protocol.py): request/response objects on either side
+        self.http_request = None
+        self.http_response = None
 
     # -- error state -------------------------------------------------------
     @property
@@ -162,9 +171,8 @@ class Controller:
         """One attempt: select a socket, pack, write, arm the timers.
         ``locked`` says whether the caller holds the call id's lock (the
         retry and backup branches of _on_error do)."""
-        from brpc_tpu_torch.rpc import tpu_std_protocol
-
-        sock, rc = self._channel._select_socket(self)
+        channel = self._channel
+        sock, rc = channel._select_socket(self)
         if rc != 0 or sock is None:
             self.set_failed(rc or errors.EFAILEDSOCKET, "no usable server")
             self._end_rpc(locked)
@@ -175,13 +183,16 @@ class Controller:
         self.remote_side = sock.remote_side
         attempt_cid = self.current_attempt_id()
         try:
-            packet = tpu_std_protocol.pack_request(self._request_payload,
-                                                   self, attempt_cid)
+            packet = channel._protocol.pack_request(self._request_payload,
+                                                    self, attempt_cid)
         except Exception as e:
             self.set_failed(errors.EREQUEST, f"fail to pack request: {e}")
             self._end_rpc(locked)
             return
-        if sock.write(packet, id_wait=attempt_cid) != 0:
+        on_packed = channel._protocol.on_packed
+        on_queued = ((lambda: on_packed(sock, self, attempt_cid))
+                     if on_packed is not None else None)
+        if sock.write(packet, id_wait=attempt_cid, on_queued=on_queued) != 0:
             return  # the socket's failure already errored the attempt
         if self._deadline is not None and self._timeout_timer is None:
             remain = max(0.0, self._deadline - time.monotonic())

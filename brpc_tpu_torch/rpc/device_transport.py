@@ -22,6 +22,13 @@ Port of brpc_tpu/rpc/device_transport.py for torch tensors:
 * ``receive_tensors`` — rebuilds tensors from every lane but the
   descriptor ring, which needs the native runtime.
 
+The lanes taken and the pool's blocks are counted in variables with the
+reference's names, shown on the console's ``/vars``:
+``device_transport_{zero_copy,shm,wire,xfer,ring}_transfers`` (read
+together by ``lane_counters``) and ``device_block_pool_{acquired,
+released}`` (every pool of the process; each pool also counts its own in
+``acquired`` and ``released``).
+
 Wire dtype names are numpy's (``"float32"``, ``"bfloat16"``, ``"int32"``),
 as the reference writes them; bfloat16 bytes cross as 16-bit patterns.
 """
@@ -41,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from brpc_tpu_torch import bvar
 from brpc_tpu_torch.butil import flags as _flags
 from brpc_tpu_torch.butil.iobuf import IOBuf
 from brpc_tpu_torch.device import DeviceLike, resolve_device
@@ -133,6 +141,10 @@ def local_device_info(device: DeviceLike = None) -> dict:
 
 # -- DeviceBlockPool (block_pool analog) --------------------------------------
 
+_pool_acquired = bvar.Adder("device_block_pool_acquired")
+_pool_released = bvar.Adder("device_block_pool_released")
+
+
 class DeviceBlockPool:
     """Pre-allocated device byte blocks by size class, the memory received
     bytes land in (the reference's block_pool.h role).
@@ -170,6 +182,7 @@ class DeviceBlockPool:
             for size in self.SIZE_CLASSES:
                 if nbytes <= size and self._free[size]:
                     self.acquired += 1
+                    _pool_acquired.update(1)
                     return size, self._free[size].pop()
         return None
 
@@ -178,6 +191,7 @@ class DeviceBlockPool:
             if size_class in self._free:
                 self._free[size_class].append(entry)
                 self.released += 1
+                _pool_released.update(1)
 
     def stats(self) -> Dict[int, int]:
         with self._lock:
@@ -414,19 +428,19 @@ _flags.define_bool(
     "use the transfer-server lane even for same-host peers (it is always "
     "used for cross-host device peers when both sides support it)")
 
-_lanes = {"inproc": 0, "ring": 0, "shm": 0, "wire": 0, "xfer": 0}
-_lanes_lock = threading.Lock()
+_lanes = {lane: bvar.Adder(f"device_transport_{name}_transfers")
+          for lane, name in (("inproc", "zero_copy"), ("ring", "ring"),
+                             ("shm", "shm"), ("wire", "wire"),
+                             ("xfer", "xfer"))}
 
 
 def _count(lane: str):
-    with _lanes_lock:
-        _lanes[lane] += 1
+    _lanes[lane].update(1)
 
 
 def lane_counters() -> dict:
     """Transfers sent per lane: {'inproc', 'ring', 'shm', 'wire', 'xfer'}."""
-    with _lanes_lock:
-        return dict(_lanes)
+    return {lane: var.get_value() for lane, var in _lanes.items()}
 
 
 _xfer_server = None

@@ -40,9 +40,11 @@ class FakeTransferConnection:
 
     def pull(self, uid: int, specs, device: DeviceLike = None) -> List[torch.Tensor]:
         """Dial the publisher and stream each tensor's bytes; ``specs`` are
-        (dtype, shape, nbytes). The bytes land on ``device`` through its
-        DeviceBlockPool."""
-        from brpc_tpu_torch.rpc.device_transport import default_block_pool
+        (dtype, shape, nbytes). The bytes land on ``device`` with a plain
+        copy, as the reference's fake lands them with ``jax.device_put``
+        (neither takes a block of the pool)."""
+        from brpc_tpu_torch.device import resolve_device
+        from brpc_tpu_torch.rpc.device_transport import _bytes_as
 
         host, _, port = self.addr.rpartition(":")
         with socket.create_connection((host, int(port)), timeout=15) as c:
@@ -51,7 +53,7 @@ class FakeTransferConnection:
             if count != len(specs):
                 raise _lane_error(f"{count} tensors published, "
                                   f"{len(specs)} requested")
-            pool = default_block_pool(device)
+            target = resolve_device(device)
             out = []
             for i, (dtype, shape, want) in enumerate(specs):
                 (nbytes,) = struct.unpack(">Q", _recv_exact(c, 8, f"size {i}"))
@@ -61,7 +63,7 @@ class FakeTransferConnection:
                 raw = _recv_exact(c, nbytes, f"tensor {i}")
                 u8 = (torch.frombuffer(raw, dtype=torch.uint8) if nbytes
                       else torch.empty(0, dtype=torch.uint8))
-                out.append(pool.put_via_pool(u8, dtype, shape))
+                out.append(_bytes_as(u8, dtype, shape).to(target, copy=True))
             return out
 
 

@@ -22,11 +22,15 @@ protobuf does:
 
 Decoding accepts packed and unpacked repeated scalars and skips unknown
 fields and fields of an unexpected wire type, as protobuf does (the
-lame-duck field 8 a native server may set in ``RpcMeta`` is one).
+lame-duck field 8 a native server may set in ``RpcMeta`` is one). Bytes
+that do not decode raise ``DecodeError`` with protobuf's text ("Error
+parsing message with type '<full name>'").
 
 The message classes keep the generated API the lane uses: attribute
 access, keyword construction, ``SerializeToString``, ``ParseFromString``,
 ``MergeFrom`` (the combo channels' default merger), ``HasField`` and ``tensors.add()``.
+Each class carries its proto full name and file (``FULL_NAME``,
+``PROTO_FILE``), which the console's ``/protobufs`` lists.
 """
 from __future__ import annotations
 
@@ -97,6 +101,8 @@ class Message:
     ``FIELDS`` as ``(number, name, kind, message class or None)``."""
 
     FIELDS: Tuple = ()
+    FULL_NAME = ""  # "<package>.<message>" of its .proto
+    PROTO_FILE = ""
     _BY_NAME: Dict[str, Tuple] = {}
     _BY_NUMBER: Dict[int, Tuple] = {}
 
@@ -142,6 +148,7 @@ class Message:
                 value = value.decode()
             if not isinstance(value, str):
                 raise TypeError(f"{name}: expected str, got {type(value)}")
+            value.encode()  # a lone surrogate fails here, as in protobuf
         elif kind == BOOL:
             value = bool(value)
         else:
@@ -189,7 +196,12 @@ class Message:
         """Merge ``data`` into this message (protobuf's ParseFromString
         clears first; every caller here parses into a fresh message)."""
         buf = bytes(data)
-        self._merge(buf, 0, len(buf))
+        try:
+            self._merge(buf, 0, len(buf))
+        except DecodeError as e:
+            # protobuf's text, naming the message; the cause stays chained
+            raise DecodeError(f"Error parsing message with type "
+                              f"'{self.FULL_NAME}'") from e
         self._mark()
         return len(buf)
 
@@ -344,3 +356,17 @@ class EchoRequest(Message):
 
 class EchoResponse(Message):
     FIELDS = ((1, "message", STRING, None),)
+
+
+def _declare(proto_file: str, package: str, *classes):
+    for cls in classes:
+        cls.PROTO_FILE = proto_file
+        cls.FULL_NAME = f"{package}.{cls.__name__}"
+
+
+_declare("rpc_meta.proto", "brpc_tpu", RpcRequestMeta, RpcResponseMeta,
+         TensorMeta, RpcMeta)
+_declare("tensor_service.proto", "brpc_tpu", TensorPushRequest,
+         TensorPushResponse, TensorPullRequest, TensorPullResponse,
+         TensorAckRequest, TensorAckResponse)
+_declare("echo.proto", "brpc_tpu.test", EchoRequest, EchoResponse)

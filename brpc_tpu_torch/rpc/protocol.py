@@ -1,16 +1,19 @@
 """Protocol — the registry of wire formats a connection may speak.
 
 Port of brpc_tpu/rpc/protocol.py: a protocol is a bundle of parse /
-process_request / process_response functions registered
-under a ProtocolType. A server port tries every server-side protocol on
-the first bytes of a connection, in a fixed priority order, and keeps the
-one that matched; ``process_inline`` marks a protocol whose messages run
+serialize_request / pack_request / process_request / process_response
+functions registered under a ProtocolType. A server port tries every
+server-side protocol on the first bytes of a connection, in a fixed
+priority order, and keeps the one that matched; ``process_inline`` marks a protocol whose messages run
 at once in the reading task, in wire order (the device handshake must be
 done before the first request of its connection runs).
 
-The port registers three protocols: ``tpu_std`` (rpc/tpu_std_protocol.py),
-``streaming`` (rpc/streaming_protocol.py) and ``device_handshake``
-(rpc/tensor_service.py).
+The port registers four protocols: ``tpu_std`` (rpc/tpu_std_protocol.py),
+``streaming`` (rpc/streaming_protocol.py), ``device_handshake``
+(rpc/tensor_service.py) and ``http`` (rpc/http_protocol.py). HTTP is
+tried last: the three framings claim a short first read that could still
+become their magic ("T" of "TRPC") before HTTP sees it. A channel packs
+through ``tpu_std`` or ``http``, the protocols with a ``pack_request``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ class ProtocolType(IntEnum):
     UNKNOWN = 0
     TPU_STD = 1  # framed pb-meta protocol (baidu_std's role)
     STREAMING = 2  # stream frames (streaming_rpc's role)
+    HTTP = 3  # HTTP/1.1: pb over HTTP and the builtin console
     TENSOR = 9  # the device handshake of the tensor lane
 
 
@@ -76,6 +80,10 @@ class Protocol:
     type: ProtocolType
     # parse(portal, socket, read_eof, arg) -> ParseResult
     parse: Callable = None
+    # serialize_request(request, controller) -> payload bytes  [client]
+    serialize_request: Callable = None
+    # pack_request(payload, controller, correlation_id) -> IOBuf  [client]
+    pack_request: Callable = None
     process_request: Callable = None  # server
     process_response: Callable = None  # client
     support_client: bool = True
@@ -83,6 +91,9 @@ class Protocol:
     # True: processed in the reading task, before the rest of the read is
     # cut (must not block for long)
     process_inline: bool = False
+    # on_packed(socket, controller, correlation_id) [client]: runs under
+    # the socket's write lock as the request is queued
+    on_packed: Callable = None
 
 
 _protocols: Dict[ProtocolType, Protocol] = {}
@@ -114,6 +125,7 @@ _PARSE_PRIORITY = {
     ProtocolType.TPU_STD: 0,
     ProtocolType.STREAMING: 1,
     ProtocolType.TENSOR: 2,
+    ProtocolType.HTTP: 3,
 }
 
 
@@ -134,6 +146,7 @@ def globally_initialize():
     with _init_lock:
         if _globally_initialized:
             return
+        from brpc_tpu_torch.rpc import http_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import streaming_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import tensor_service  # noqa: F401
         from brpc_tpu_torch.rpc import tpu_std_protocol  # noqa: F401

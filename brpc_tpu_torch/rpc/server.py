@@ -4,10 +4,11 @@ Port of the Python path of brpc_tpu/rpc/server.py. ``add_service`` builds
 the (service, method) map with a MethodStatus per method, whose limiter
 comes from ``method_max_concurrency`` or ``max_concurrency``. ``start``
 registers the protocols, sizes the process's task control
-(``num_threads`` workers, the first caller decides), listens, builds one
-InputMessenger over the enabled server protocols (``tpu_std`` and the
-``TDEV`` device handshake), starts the Acceptor on the event dispatcher
-and exposes the process variables. Requests run in task-control workers:
+(``num_threads`` workers, the first caller decides), registers the
+builtin console unless ``has_builtin_services`` is off, listens, builds
+one InputMessenger over the enabled server protocols (``tpu_std``, the
+stream frames, the ``TDEV`` device handshake and HTTP), starts the
+Acceptor on the event dispatcher and exposes the process variables. Requests run in task-control workers:
 no thread is started per connection. ``stop`` stops accepting and fails
 every connection, as the reference's Python path does (no drain).
 
@@ -15,10 +16,16 @@ With ``device`` on the card, ``start`` makes the device identity once
 (CUDA's start, the send arena's page-locking, the transfer server), so
 that no handshake pays for it in the task that reads its connection.
 
-Left out: authentication and TLS, the other protocols' services,
-restful mappings, builtin services and the console (they come with the
-HTTP protocol), the native runtime and its workers. ``idle_timeout_s``
-and ``server_info_name`` are read nowhere in the reference and are not
+The RPC port answers HTTP too: ``curl http://host:port/status`` reads
+the console (brpc_tpu_torch/builtin/console.py: ``/status``, ``/vars``,
+``/brpc_metrics``, ``/connections``, ``/flags``, ``/hotspots`` with the
+card trace on ``/hotspots/tpu``, ...), ``POST /Service/Method`` calls a
+method with a JSON body, and ``restful_mappings``
+(``"/v1/echo => EchoService.Echo, ..."``) give a method a path of its own.
+
+Left out: authentication and TLS, the other protocols' services, the
+native runtime and its workers. ``idle_timeout_s`` and
+``server_info_name`` are read nowhere in the reference and are not
 ported.
 """
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import socket as pysocket
 import sys
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
@@ -53,6 +61,10 @@ class ServerOptions:
     interceptor: Optional[Callable] = None  # (cntl) -> (ok, code, text)
     session_local_data_factory: Optional[object] = None  # a DataFactory
     enabled_protocols: Tuple[str, ...] = ()  # empty: every registered one
+    # the console's pages and /hotspots on the RPC port, over HTTP
+    has_builtin_services: bool = True
+    # "/v1/echo => EchoService.Echo, /v1/x => S.M"
+    restful_mappings: str = ""
     # SIGTERM becomes stop() + join() + exit(0)
     graceful_quit_on_sigterm: bool = False
     # The identity the server half of the device handshake announces: the
@@ -72,12 +84,24 @@ class Server:
         self.listen_endpoint: Optional[EndPoint] = None
         self._started = False
         self._stopped_event = threading.Event()
+        self.start_time = 0.0  # time.time() at the last start
         self.interceptor = self.options.interceptor
         self.session_pool = None
         if self.options.session_local_data_factory is not None:
             self.session_pool = SimpleDataPool(
                 self.options.session_local_data_factory)
         self._lock = threading.Lock()
+        # restful path -> (service_name, method_name)
+        self.restful_map: Dict[str, Tuple[str, str]] = {}
+        for part in (self.options.restful_mappings or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            path, _, target = part.partition("=>")
+            service, _, method = target.strip().rpartition(".")
+            path = "/" + path.strip().strip("/")
+            if service and method:
+                self.restful_map[path] = (service, method)
 
     # -- service registry --------------------------------------------------
     def add_service(self, service: Service) -> int:
@@ -133,6 +157,10 @@ class Server:
             if self._started:
                 return -1
             get_task_control(self.options.num_threads).init()
+            if self.options.has_builtin_services:
+                from brpc_tpu_torch.builtin import register_builtin_services
+
+                register_builtin_services(self)
             lfd = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_STREAM)
             lfd.setsockopt(pysocket.SOL_SOCKET, pysocket.SO_REUSEADDR, 1)
             try:
@@ -150,6 +178,7 @@ class Server:
             self._acceptor = Acceptor(self._messenger)
             self._acceptor.start_accept(lfd)
             self._started = True
+            self.start_time = time.time()
             self._stopped_event.clear()
             if self.options.graceful_quit_on_sigterm:
                 self._install_sigterm_handler()

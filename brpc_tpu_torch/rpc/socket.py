@@ -79,6 +79,10 @@ class _Registry:
                 return None
             return self._slots[idx][1]
 
+    def size(self) -> int:
+        with self._lock:
+            return len(self._slots)
+
     def remove(self, sid: int) -> bool:
         idx, version = sid & 0xFFFFFFFF, sid >> 32
         with self._lock:
@@ -263,12 +267,15 @@ class Socket:
                 get_global_dispatcher(fdno).resume_read(fdno)
 
     # -- write -------------------------------------------------------------
-    def write(self, buf: IOBuf, id_wait: Optional[int] = None) -> int:
+    def write(self, buf: IOBuf, id_wait: Optional[int] = None,
+              on_queued: Optional[Callable[[], None]] = None) -> int:
         """Queue the whole message; 0 on success, -1 when the connection
         has failed. ``id_wait`` is the call id of the attempt the message
         carries: a failure of this socket errors it, now or until the RPC
-        removes it. Tensors riding the chain are read to the host when
-        the frame is written."""
+        removes it. ``on_queued`` runs under the write lock as the message
+        is queued, so per-connection state kept in request order (HTTP's
+        correlation ids) follows the wire order. Tensors riding the chain
+        are read to the host when the frame is written."""
         with self._state_lock:
             if self._failed or self._fd is None:
                 fail_now = True
@@ -277,6 +284,8 @@ class Socket:
                 if id_wait is not None:
                     self._inflight_ids.add(id_wait)
                 self._write_q.append(buf)
+                if on_queued is not None:
+                    on_queued()
                 if self._writing:
                     return 0  # the writer sends it after what it holds
                 self._writing = True
@@ -442,6 +451,10 @@ class Socket:
                 self.error_text = ""
                 self.read_portal = IOBuf()
                 self.matched_protocol = None
+                # what a protocol kept for the old connection (HTTP's
+                # ids in request order) does not hold for the new one
+                for name in ("_http_pipeline", "_http_saw_keepalive"):
+                    self.__dict__.pop(name, None)
                 self._epollout = threading.Event()
             rc = self.connect()
             if rc != 0:

@@ -141,6 +141,10 @@ def parse(portal: IOBuf, sock, read_eof: bool, arg) -> ParseResult:
 
 # -- client side -----------------------------------------------------------
 
+def serialize_request(request, cntl: Controller) -> bytes:
+    return request.SerializeToString() if request is not None else b""
+
+
 def pack_request(payload: bytes, cntl: Controller, correlation_id: int) -> IOBuf:
     """The frame of one attempt. Its tensors are packed on the attempt's
     connection (``cntl._current_sock``), into a copy of the request
@@ -303,6 +307,8 @@ register_protocol(Protocol(
     name="tpu_std",
     type=ProtocolType.TPU_STD,
     parse=parse,
+    serialize_request=serialize_request,
+    pack_request=pack_request,
     process_request=process_request,
     process_response=process_response,
 ))

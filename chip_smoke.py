@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --peer`` is the second process of phases 6, 8,
-9 and 10; the script starts it itself.)
+9, 10 and 12; the script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -107,7 +107,26 @@ unavailable, or when the port is not beside it:
             most device time, the kernels launched per forward (between
             markers), the kernel time per forward, the busy share of the
             window (the union of kernel intervals) and its longest idle
-            gaps.
+            gaps;
+12. console — one ``--peer`` on the card with its builtin services (the
+            default) while a thread here pushes the activations as their 4
+            rows of [512, 2048] bfloat16 (2 MiB each, so each lands on the
+            peer's card through a block of its pool) over the shm lane and
+            pulls + ACKs them, in a loop. Meanwhile, on the peer's one port,
+            by ``http.client`` and by the port's ``Channel(protocol="http")``:
+            /health, /version, /status, /vars, /brpc_metrics, /connections
+            (listing this process's device connection), /flags/<the
+            prefer-xfer flag>, SmokePeer.Control called as JSON,
+            /hotspots/cpu?seconds=0.5 naming the Push handler,
+            /hotspots/tpu?seconds=1 (a zip whose Chrome trace holds the
+            peer's H2D copies on its card and its TensorStore.Push
+            landings) and a second /hotspots/tpu during the first, refused.
+            With the load stopped, /status's TensorStore.Push count,
+            /vars's device_transport_shm_transfers and /brpc_metrics's
+            device_block_pool_acquired/released move by exactly the pushes
+            made (the blocks 4x); both sides at rest; the peer exits 0.
+            Prints each page's latency under load and the trace's size and
+            event counts.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -116,6 +135,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import errno
+import http.client
 import io
 import json
 import math
@@ -152,6 +172,7 @@ from brpc_tpu_torch.rpc import (
 from brpc_tpu_torch.rpc import cuda_ipc_transfer, errors
 from brpc_tpu_torch.rpc.channel import call_on_socket, get_client_messenger
 from brpc_tpu_torch.rpc.concurrency_limiter import create_concurrency_limiter
+from brpc_tpu_torch.rpc.http_message import HttpRequest
 from brpc_tpu_torch.rpc import device_transport as dt
 from brpc_tpu_torch.rpc.proto import wire
 from brpc_tpu_torch.rpc.service import Service, rpc_method
@@ -436,6 +457,7 @@ def phase_card_vs_cpu(tag: str):
 # -- phase 6: serve across processes -----------------------------------------
 
 PREFER_XFER = "device_transport_prefer_xfer"
+PUSH_LABEL = "TensorStore.Push"  # the peer's landing, in its card trace
 PEER_THREADS = 8  # the peer's task-control workers
 XROUNDS = 7  # push + pull + ACK rounds per payload and lane (median)
 PEER_READY_S = 180
@@ -488,7 +510,9 @@ class SmokePeer(Service):
 
             threading.Timer(float(cmd["after_s"]), stop).start()
         torch.cuda.synchronize()
-        ep = cntl._server_socket.app_state
+        # a call over HTTP (phase 12) has no tpu_std connection
+        sock = cntl._server_socket
+        ep = sock.app_state if sock is not None else None
         arena = dt.default_send_arena()
         server = dt._global_xfer_server()
         # every connection's endpoint, the balanced channels' included
@@ -551,9 +575,10 @@ class SmokeStore(TensorStoreService):
 
         def landed():
             # through the block pool on this worker: its copies and the
-            # sync before a block goes back run on one thread
+            # sync before a block goes back run on one thread; phase 12
+            # finds these host ops in the peer's trace by the label
             pool = dt.default_block_pool()
-            with self._lock:
+            with torch.profiler.record_function(PUSH_LABEL), self._lock:
                 held = self._store.get(request.name)
                 if held is not None:
                     self._store[request.name] = [
@@ -1948,6 +1973,7 @@ def phase_trace(tokens: torch.Tensor, tag: str):
     out = {}
     tracer = threading.Thread(
         target=lambda: out.update(trace=cuda_trace(TRACE_S)))
+    t_trace = time.perf_counter()
     tracer.start()
     forwards, fwd_s = 0, []
     while tracer.is_alive():
@@ -1958,13 +1984,17 @@ def phase_trace(tokens: torch.Tensor, tag: str):
         fwd_s.append(time.perf_counter() - t0)
         forwards += 1
     tracer.join()
+    trace_s = time.perf_counter() - t_trace
     del params
     ctype, body = out["trace"]
     check(ctype == "application/zip", f"cuda_trace gave {ctype}: {body!r}")
     summary = summarize_trace(body)
     check(summary["kernels"] > 0, "the trace holds no kernel")
     check(summary["forwards"] >= 1, "the trace holds no whole forward")
-    print(f"trace: cuda_trace({TRACE_S}) while {forwards} forwards ran "
+    summary["call_s"] = round(trace_s, 3)
+    print(f"trace: cuda_trace({TRACE_S}) took {summary['call_s']} s (the "
+          f"profiler's start, the window, its stop and the export) while "
+          f"{forwards} forwards ran "
           f"(host median {statistics.median(fwd_s) * 1e3:.3f} ms each, the "
           f"profiler's host cost included): "
           f"a {len(body)} B zip, window {summary['window_ms']} ms, "
@@ -1989,6 +2019,276 @@ def phase_trace(tokens: torch.Tensor, tag: str):
               f"before {row['before']}")
     print(f"trace: phase took {time.perf_counter() - t_start:.1f} s {tag}")
     print("trace " + json.dumps(summary))
+
+
+# -- phase 12: the console of a card server, under load ----------------------
+
+CONSOLE_ROWS = 4  # the activations pushed as their 4 sequences, 2 MiB each
+CONSOLE_PAGES = ("/health", "/version", "/status", "/vars",
+                 "/vars/device_transport_shm_transfers", "/brpc_metrics",
+                 "/connections", f"/flags/{PREFER_XFER}")
+CONSOLE_TRACE_S = 1.0
+CONSOLE_CPU_S = 0.5
+TRACE_BUSY = "profiler trace failed: a trace is running\n"
+
+
+def http_get(port: int, path: str, timeout_s: float = 60.0, method="GET",
+             body=None, headers=None):
+    """(status, headers, body, ms) of one request on a new connection."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout_s)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        data = r.read()
+        ms = round((time.perf_counter() - t0) * 1e3, 3)
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data, ms
+    finally:
+        conn.close()
+
+
+def channel_get(ch: Channel, path: str):
+    """A console page through the port's HTTP channel: (body, ms)."""
+    cntl = Controller()
+    cntl.timeout_ms = 60000
+    cntl.http_request = HttpRequest("GET", path)
+    t0 = time.perf_counter()
+    ch.call_method("", cntl, None, None)
+    ms = round((time.perf_counter() - t0) * 1e3, 3)
+    check(not cntl.failed(), f"12: GET {path} over the port's HTTP channel: "
+          f"{cntl.error_text}")
+    return cntl.http_response.body.to_bytes(), ms
+
+
+def _var_of(text: bytes, name: str, sep: bytes = b" : ") -> int:
+    """The value of ``name`` on a /vars (sep " : ") or /brpc_metrics
+    (sep " ") page."""
+    for line in text.split(b"\n"):
+        if line.startswith(name.encode() + sep):
+            return int(float(line[len(name) + len(sep):]))
+    raise RuntimeError(f"chip_smoke: {name} is not on the page")
+
+
+def _push_count(status_page: bytes) -> int:
+    for line in status_page.split(b"\n"):
+        if line.startswith(b"TensorStore.Push: "):
+            return int(line.split(b" count=")[1].split()[0])
+    raise RuntimeError("chip_smoke: /status lists no TensorStore.Push")
+
+
+def summarize_peer_trace(body: bytes) -> dict:
+    """The peer's card work and its Push landings in its cuda_trace."""
+    with zipfile.ZipFile(io.BytesIO(body)) as zf:
+        (name,) = zf.namelist()
+        events = json.loads(zf.read(name))["traceEvents"]
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    d2h = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "DtoH" in e.get("name", "")]
+    pushes = [e for e in events if e.get("name") == PUSH_LABEL
+              and e.get("cat") in ("user_annotation", "cpu_op")]
+    devices = sorted({e.get("args", {}).get("device") for e in h2d + d2h
+                      if e.get("args", {}).get("device") is not None})
+    return {"zip_bytes": len(body), "events": len(events),
+            "by_category": {str(k): v for k, v in sorted(
+                cats.items(), key=lambda kv: -kv[1])[:8]},
+            "h2d_copies": len(h2d),
+            "h2d_mb": round(sum(e.get("args", {}).get("bytes", 0)
+                                for e in h2d) / 1e6, 3),
+            "d2h_copies": len(d2h), "push_ops": len(pushes),
+            "card_devices": devices}
+
+
+def phase_console(tag: str, gen):
+    """12: the console of a --peer on the card while this process pushes
+    and pulls the activations over the shm lane from a thread."""
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    act = torch.randn((BATCH, SEQ, BIG.d_model), dtype=torch.bfloat16,
+                      device=dev, generator=gen)
+    rows = list(act.unbind(0))  # 2 MiB each: one pool block each
+    proc, port = start_peer()
+    ctl = sock = hch = None
+    result, rc = {"pages_ms": {}}, None
+    stop, errs, made = threading.Event(), [], [0]
+    push_s, pull_s = [], []
+
+    def load():
+        client = TensorClient(PinnedChannel(sock))
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                cntl, resp = client.push("c12", rows)
+                t1 = time.perf_counter()
+                check(not cntl.failed() and resp.ok,
+                      f"12 push: {cntl.error_text}")
+                made[0] += 1
+                pcntl, got = client.pull("c12", device=dev)
+                push_s.append(t1 - t0)
+                pull_s.append(time.perf_counter() - t1)
+                check(not pcntl.failed() and got is not None,
+                      f"12 pull: {pcntl.error_text}")
+                check(all(torch.equal(u8(g), u8(r)) for g, r in
+                          zip(got, rows)), "12: pulled bytes differ")
+        except Exception as e:  # reported by the phase
+            errs.append(e)
+
+    loader = threading.Thread(target=load)
+    try:
+        ctl = Channel()
+        check(ctl.init(f"127.0.0.1:{port}") == 0, "control channel init")
+        peer_control(ctl, "to_card", on=True)
+        hch = Channel(ChannelOptions(protocol="http", timeout_ms=60000))
+        check(hch.init(f"127.0.0.1:{port}") == 0, "12: HTTP channel init")
+        sock = device_socket(port)
+        lanes0 = dt.lane_counters()
+        before = {"vars": http_get(port, "/vars/device_")[2],
+                  "metrics": http_get(port, "/brpc_metrics")[2]}
+        loader.start()
+        _wait(lambda: made[0] >= 2 or errs, 60, "12: the load starts")
+        pages = {}
+        for path in CONSOLE_PAGES:
+            status, headers, body, ms = http_get(port, path)
+            check(status == 200, f"12: GET {path} answered {status}")
+            pages[path] = body
+            result["pages_ms"][path] = ms
+        check(pages["/health"] == b"OK\n", "12: /health")
+        check(pages["/version"].startswith(b"brpc_tpu_torch/"), "12: /version")
+        local = "%s:%d" % sock.fd().getsockname()[:2]
+        check(local.encode() in pages["/connections"],
+              f"12: /connections does not list {local}")
+        check(pages[f"/flags/{PREFER_XFER}"].startswith(
+            f"{PREFER_XFER}=False (default=False) [reloadable]".encode()),
+            f"12: /flags/{PREFER_XFER}")
+        # the port's HTTP channel: pages and a JSON call
+        for path in ("/status", "/vars/device_transport_shm_transfers",
+                     "/brpc_metrics"):
+            body, ms = channel_get(hch, path)
+            # the same first line but for a count the load moves meanwhile
+            check(body.split(b"\n")[0].split(b" : ")[0]
+                  == pages[path].split(b"\n")[0].split(b" : ")[0],
+                  f"12: {path} over the channel: {body[:80]!r}")
+            result["pages_ms"][f"channel {path}"] = ms
+        state = json.dumps({"name": json.dumps({"op": "state"})})
+        status, _, body, ms = http_get(
+            port, "/SmokePeer/Control", method="POST", body=state,
+            headers={"Content-Type": "application/json"})
+        check((status, json.loads(body)) == (200, {"ok": True}),
+              f"12: SmokePeer.Control as JSON: {status} {body!r}")
+        result["pages_ms"]["POST /SmokePeer/Control"] = ms
+        t0 = time.perf_counter()
+        cntl, resp = hch.call("SmokePeer.Control",
+                              wire.TensorPullRequest(name=json.dumps(
+                                  {"op": "state"})), wire.TensorAckResponse,
+                              timeout_ms=60000)
+        result["pages_ms"]["channel SmokePeer.Control"] = round(
+            (time.perf_counter() - t0) * 1e3, 3)
+        check(not cntl.failed() and resp.ok,
+              f"12: SmokePeer.Control over the HTTP channel: {cntl.error_text}")
+        # the profilers
+        status, _, body, ms = http_get(
+            port, f"/hotspots/cpu?seconds={CONSOLE_CPU_S}")
+        check(status == 200 and b"Push (" in body,
+              "12: /hotspots/cpu names no Push handler")
+        result["pages_ms"][f"/hotspots/cpu?seconds={CONSOLE_CPU_S}"] = ms
+        traced = {}
+        tracer = threading.Thread(target=lambda: traced.update(zip(
+            ("status", "headers", "body", "ms"),
+            http_get(port, f"/hotspots/tpu?seconds={CONSOLE_TRACE_S}"))))
+        tracer.start()
+        time.sleep(0.3)  # the first trace holds the profiler by now
+        status, _, second, ms = http_get(port, "/hotspots/tpu?seconds=0.1")
+        check(status == 200 and second == TRACE_BUSY.encode(),
+              f"12: a second trace was not refused: {second[:80]!r}")
+        result["pages_ms"]["/hotspots/tpu refused"] = ms
+        tracer.join(120)
+        check(not tracer.is_alive(), "12: /hotspots/tpu hangs")
+        check(traced.get("status") == 200
+              and traced["headers"].get("content-type") == "application/zip",
+              f"12: /hotspots/tpu answered {traced.get('status')} "
+              f"{traced.get('body', b'')[:80]!r}")
+        result["pages_ms"][f"/hotspots/tpu?seconds={CONSOLE_TRACE_S}"] = (
+            traced["ms"])
+        trace = summarize_peer_trace(traced["body"])
+        check(trace["h2d_copies"] > 0 and trace["push_ops"] > 0,
+              f"12: the peer's trace lacks its card work: {trace}")
+        result["trace"] = trace
+        stop.set()
+        loader.join(60)
+        check(not loader.is_alive(), "12: the load hangs")
+        if errs:
+            raise errs[0]
+        # the counts, with the load stopped
+        pushes = made[0]
+        after = {"vars": http_get(port, "/vars/device_")[2],
+                 "metrics": http_get(port, "/brpc_metrics")[2],
+                 "status": http_get(port, "/status")[2]}
+        moved = {
+            "status_push_count": _push_count(after["status"]),
+            "shm_transfers": (
+                _var_of(after["vars"], "device_transport_shm_transfers")
+                - _var_of(before["vars"], "device_transport_shm_transfers")),
+            "pool_acquired": (
+                _var_of(after["metrics"], "device_block_pool_acquired", b" ")
+                - _var_of(before["metrics"], "device_block_pool_acquired",
+                          b" ")),
+            "pool_released": (
+                _var_of(after["metrics"], "device_block_pool_released", b" ")
+                - _var_of(before["metrics"], "device_block_pool_released",
+                          b" ")),
+            "client_shm_sends": dt.lane_counters()["shm"] - lanes0["shm"]}
+        want = {"status_push_count": pushes, "shm_transfers": pushes,
+                "pool_acquired": CONSOLE_ROWS * pushes,
+                "pool_released": CONSOLE_ROWS * pushes,
+                "client_shm_sends": pushes}
+        check(moved == want, f"12: the console's counts {moved}, the pushes "
+              f"made say {want}")
+        result.update(pushes=pushes, counts=moved,
+                      push_ms_median=_ms(push_s), push_ms_p99=_p99(push_s),
+                      pull_ack_ms_median=_ms(pull_s),
+                      pull_ack_ms_p99=_p99(pull_s))
+        st = peer_control(ctl, "state")
+        _peer_at_rest(st, "12")
+        _pool_full(st, "12")
+        _sockets_at_rest([sock], "12")
+        rc = stop_peer(proc)
+        proc = None
+        check(rc == 0, f"12: the peer exited with code {rc}")
+    finally:
+        stop.set()
+        if loader.is_alive():
+            loader.join(60)
+        if sock is not None:
+            sock.recycle()
+        for ch in (ctl, hch):
+            if ch is not None:
+                ch.close()
+        if proc is not None:
+            stop_peer(proc)
+    result["seconds"] = round(time.perf_counter() - t_start, 1)
+    t = result["trace"]
+    print(f"console/12: {result['pushes']} pushes of the activations as "
+          f"{CONSOLE_ROWS} x {list(rows[0].shape)} {act.dtype} over the shm "
+          f"lane, each landed on the peer's card through its block pool, and "
+          f"as many pulls + ACKs, byte-identical (push median "
+          f"{result['push_ms_median']} ms p99 {result['push_ms_p99']} ms, "
+          f"pull+ACK median {result['pull_ack_ms_median']} ms p99 "
+          f"{result['pull_ack_ms_p99']} ms); meanwhile every page "
+          f"answered: " + ", ".join(f"{p} {ms} ms" for p, ms in
+                                    result["pages_ms"].items()) + "; "
+          f"/status, /vars and /brpc_metrics moved by the pushes made "
+          f"({result['counts']}); the peer's {CONSOLE_TRACE_S} s trace: "
+          f"{t['zip_bytes']} B zipped, {t['events']} events, "
+          f"{t['h2d_copies']} H2D copies ({t['h2d_mb']} MB) and "
+          f"{t['d2h_copies']} D2H on devices {t['card_devices']}, "
+          f"{t['push_ops']} {PUSH_LABEL} landings; the second trace refused; "
+          f"both sides at rest, the peer exited 0 {tag}")
+    print(f"console: phase took {result['seconds']} s {tag}")
+    print("console " + json.dumps(result))
+    return result
 
 
 def main() -> int:
@@ -2018,6 +2318,7 @@ def main() -> int:
     phase_serve(tag, gen, naming)
     phase_streams(tag, gen)
     phase_trace(tokens, tag)
+    phase_console(tag, gen)
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "

@@ -250,7 +250,8 @@ def test_channel_init_rejects_garbage():
         assert ref_rpc.Channel().init(url, lb) == ref_errors.EINVAL
         assert rpc.Channel().init(url, lb) == errors.EINVAL
     assert rpc.Channel().init("1.2.3.4") == errors.EINVAL
-    assert (rpc.Channel(rpc.ChannelOptions(protocol="http")).init(
+    # tpu_std and http are the port's client protocols; the rest refused
+    assert (rpc.Channel(rpc.ChannelOptions(protocol="redis")).init(
         "1.2.3.4:80") == errors.EPROTONOTSUP)
 
 
