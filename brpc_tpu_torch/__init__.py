@@ -16,6 +16,8 @@ to find:
 * ``builtin`` and ``json2pb`` — the console a server serves over HTTP
   on its RPC port, its profilers (the card trace on ``/hotspots/tpu``),
   and JSON to and from the port's messages;
+* ``rpcz`` — a span for each call on both sides, one trace across hops
+  and packages, browsable at ``/rpcz``;
 * ``entry`` — ``entry(device=None)`` and ``dryrun_multichip``, the
   counterparts of ``__graft_entry__``'s.
 

@@ -6,15 +6,18 @@ served by the HTTP protocol's router on the RPC port: ``/status``,
 ``/health``, ``/connections``, ``/index``, ``/version``,
 ``/brpc_metrics`` (Prometheus), ``/protobufs``, ``/bthreads``,
 ``/sockets``, ``/heap``, ``/growth``, ``/list``, ``/vlog``, ``/dir``,
-``/ids``, and the profilers' ``/hotspots``, ``/pprof`` and ``/threads``
+``/ids``, ``/rpcz`` (``?trace_id=<hex>``, ``?limit=N``), ``/rpc_dump``,
+and the profilers' ``/hotspots``, ``/pprof`` and ``/threads``
 (builtin/hotspots.py). A handler takes (server, http_request) and
 returns (status, content_type, body), or with extra headers a 4-tuple.
 
 Each page prints what the port has. Left out: the native runtime's
-sections of ``/status`` and ``/connections`` and its ``/heap/native``
-and ``/growth/native`` profiles (the port has no native runtime: those
-answer the reference's "native runtime unavailable"), and the pages of
-modules not ported yet: ``/rpcz``, ``/rpc_dump`` and ``/fleet``.
+sections of ``/status`` and ``/connections``, its ``/heap/native``
+and ``/growth/native`` profiles and the capture window of
+``/rpc_dump?seconds=N`` (the port has no native runtime: those answer
+the reference's "native runtime unavailable", and ``/rpc_dump`` shows
+the reference's status page without a native recorder), and the page of
+a module not ported yet: ``/fleet``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import stat
 import time
 from xml.sax.saxutils import escape
 
-from brpc_tpu_torch import bvar
+from brpc_tpu_torch import bvar, rpcz
 from brpc_tpu_torch.builtin.hotspots import (
     _NATIVE_UNAVAILABLE,
     hotspots_handler,
@@ -33,6 +36,7 @@ from brpc_tpu_torch.builtin.hotspots import (
     threads_handler,
 )
 from brpc_tpu_torch.butil import flags as flags_mod
+from brpc_tpu_torch.rpc import rpc_dump  # noqa: F401 (defines its flags)
 
 
 def _version() -> str:
@@ -239,6 +243,35 @@ def _growth_handler(server, req):
     return _native_or(profilers.growth_profile, req)
 
 
+def _rpcz_handler(server, req):
+    """/rpcz: the newest spans; ?trace_id=<hex> one trace."""
+    return 200, "text/plain", rpcz.describe_recent_spans(req.query)
+
+
+def _rpc_dump_status_body():
+    """/rpc_dump's status: the reference's page without a native
+    recorder, and the flags of the recorder of the Python lane."""
+    lines = ["traffic flight recorder (rpc_dump)", "",
+             "native recorder: unavailable (no native runtime)", "",
+             f"python lane: -rpc_dump={flags_mod.get_flag('rpc_dump')} "
+             f"-rpc_dump_dir={flags_mod.get_flag('rpc_dump_dir')} "
+             f"-rpc_dump_sample_every="
+             f"{flags_mod.get_flag('rpc_dump_sample_every')}",
+             "",
+             "GET /rpc_dump?seconds=N[&every=M][&dir=PATH] arms a "
+             "bounded native capture window; replay the files with "
+             "`python tools/rpc_replay.py --native`."]
+    return "\n".join(lines) + "\n"
+
+
+def _rpc_dump_handler(server, req):
+    """/rpc_dump: the recorder's status; a capture window (?seconds=N)
+    needs the native runtime."""
+    if req.query.get("seconds"):
+        return 200, "text/plain", _NATIVE_UNAVAILABLE
+    return 200, "text/plain", _rpc_dump_status_body()
+
+
 def _list_handler(server, req):
     """/list: the services and their methods as JSON."""
     out = {}
@@ -345,6 +378,8 @@ def attach_console(server):
         "sockets": _sockets_handler,
         "heap": _heap_handler,
         "growth": _growth_handler,
+        "rpc_dump": _rpc_dump_handler,
+        "rpcz": _rpcz_handler,
         "list": _list_handler,
         "vlog": _vlog_handler,
         "dir": _dir_handler,

@@ -2,8 +2,11 @@
 (naming services, load balancers, retries, backup requests, the circuit
 breaker and the combo channels), the reference-grade server (acceptor,
 input messenger and event dispatcher, method status and concurrency
-limiters), the protocol registry with the tpu_std and stream framings,
-streams, the device transport and the TensorStore service."""
+limiters), the protocol registry with the tpu_std, stream and HTTP
+framings, tpu_std compression (``compress``), streams and progressive
+attachments (``progressive``), request recording (``rpc_dump``), the
+device transport and the TensorStore service. Spans are in
+``brpc_tpu_torch.rpcz``."""
 
 from brpc_tpu_torch.rpc.channel import Channel, ChannelOptions  # noqa: F401
 from brpc_tpu_torch.rpc.combo_channels import (  # noqa: F401

@@ -38,7 +38,10 @@ do not share a connection.
 
 Left out of the reference's options: ``auth``, ``use_ssl`` and
 ``ssl_verify`` (the port has no authenticator and no TLS), and the other
-protocols. Also left out: rpc_dump and the native runtime.
+protocols. Also left out: the native runtime.
+
+With the ``rpc_dump`` flag on, each call's serialized request is
+recorded before it is compressed or sent (rpc/rpc_dump.py).
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ from brpc_tpu_torch.rpc.protocol import (
     globally_initialize,
     list_server_protocols,
 )
+from brpc_tpu_torch.rpc.rpc_dump import maybe_dump_request
 from brpc_tpu_torch.rpc.socket import Socket
 
 
@@ -107,6 +111,7 @@ def _start_call(channel, method_full_name: str, cntl: Controller, request,
         cntl.set_failed(errors.EREQUEST, f"fail to serialize request: {e}")
         cntl._end_rpc(locked=False)
         return
+    maybe_dump_request(method_full_name, cntl._request_payload, cntl.log_id)
     cntl.issue_rpc()
     if done is None:
         cntl.join()

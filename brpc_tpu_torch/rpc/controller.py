@@ -31,8 +31,17 @@ lock as the request is queued (HTTP keeps its correlation ids in request
 order there). ``http_request`` and ``http_response`` are the HTTP
 messages of a call over HTTP, on either side.
 
-Left out: rpcz spans, compression other than none (the server refuses
-it), and authentication.
+Tracing and compression: ``_setup_call`` opens the call's rpcz client
+span (rpcz.py), whose ids the request's meta carries, and the RPC's end
+closes it once, with the winning connection's ``remote_side``: the
+attempts of one RPC (retries, a backup request) share it. On the server,
+``trace_id`` and ``span`` are the request's. ``compress_type`` (the
+``COMPRESS_*`` codes of rpc/compress.py) compresses the request's
+payload, and on the server the response's, never an attachment.
+``close_connection()`` in a handler closes the connection after the
+response is sent. ``reset()`` makes a used controller new.
+
+Left out: authentication.
 """
 from __future__ import annotations
 
@@ -40,17 +49,21 @@ import threading
 import time
 from typing import Callable, List, Optional
 
-from brpc_tpu_torch import bvar
+from brpc_tpu_torch import bvar, rpcz
 from brpc_tpu_torch.bthread import id as bthread_id
 from brpc_tpu_torch.bthread import timer_add, timer_del
 from brpc_tpu_torch.butil.iobuf import IOBuf
 from brpc_tpu_torch.rpc import errors
+from brpc_tpu_torch.rpc.compress import (  # noqa: F401
+    COMPRESS_GZIP,
+    COMPRESS_NONE,
+    COMPRESS_SNAPPY,
+    COMPRESS_ZLIB,
+)
 
 _client_count = bvar.Adder("rpc_client_calls")
 _backup_count = bvar.Adder("rpc_backup_requests")
 _retry_count = bvar.Adder("rpc_retries")
-
-COMPRESS_NONE = 0
 
 
 class RetryPolicy:
@@ -72,6 +85,9 @@ DEFAULT_RETRY_POLICY = RetryPolicy()
 
 class Controller:
     def __init__(self):
+        self.reset()
+
+    def reset(self):
         # shared
         self.error_code_value = 0
         self.error_text_value = ""
@@ -112,6 +128,7 @@ class Controller:
         self.service_name = ""
         self.method_name = ""
         self.server_start_time = 0.0  # time.monotonic() at arrival
+        self.close_connection_flag = False
         self.session_local_data = None  # lent by the server's pool
         self._server_socket = None
         # tensor lane: outbound tensors on the client; the inbound and
@@ -128,6 +145,10 @@ class Controller:
         # http (http_protocol.py): request/response objects on either side
         self.http_request = None
         self.http_response = None
+        # tracing (rpcz.py): the ids the request's meta carries
+        self.trace_id = 0
+        self.span_id = 0
+        self.span = None
 
     # -- error state -------------------------------------------------------
     @property
@@ -144,6 +165,10 @@ class Controller:
     def set_failed(self, error_code: int, error_text: str = ""):
         self.error_code_value = error_code or errors.EINVAL
         self.error_text_value = error_text or errors.berror(self.error_code_value)
+
+    def close_connection(self, reason: str = ""):
+        """Server side: close the connection once the response is sent."""
+        self.close_connection_flag = True
 
     # -- client call lifecycle ---------------------------------------------
     @property
@@ -162,6 +187,7 @@ class Controller:
         # versions: v names the RPC, v+1+k attempt k
         self._call_id = bthread_id.create_ranged(self, self._on_error,
                                                  self.max_retry + 2)
+        self.span = rpcz.start_client_span(method_full_name, self)
         _client_count.update(1)
 
     def current_attempt_id(self) -> int:
@@ -293,6 +319,11 @@ class Controller:
             timer_del(self._backup_timer)
             self._backup_timer = None
         self.latency_us = (time.monotonic() - self._start_time) * 1e6
+        if self.span is not None:
+            self.span.remote_side = (str(self.remote_side)
+                                     if self.remote_side else None)
+            self.span.end(self.error_code_value)
+            self.span = None
         for sock in self._accessed:
             for k in range(self.max_retry + 1):
                 sock.remove_inflight(self._call_id + 1 + k)

@@ -6,21 +6,30 @@ Port of brpc_tpu/rpc/tpu_std_protocol.py, byte-compatible with it: a
 The attachment carries the tensors that ``meta.tensors`` describes.
 
 The server path runs the interceptor, finds the method, asks its
-MethodStatus (a limiter's refusal is ELIMIT), parses the request, lends
-the session data and records the call's latency when it is done. A
+MethodStatus (a limiter's refusal is ELIMIT), decompresses and parses the
+request (a failure of either is EREQUEST "fail to parse request"), opens
+the call's rpcz server span, lends the session data, runs the handler
+with the span as the parent of its own client calls, and when the
+handler is done ends the span, records the call's latency and sends the
+response, compressed as the request was; ``close_connection()`` then
+closes the connection (ECLOSE). A request carries the client span's
+``trace_id`` and ``span_id`` (never ``parent_span_id``, as in the
+reference). A frame compresses its payload only: tensors in the
+attachment go as they are, so a compressed push lands bit-equal. A
 response whose meta carries the SHUTDOWN bit (field 8) marks its
-connection lame duck. Left out: authentication, rpcz spans, compression
-other than 0 (a request asking for it is refused with EREQUEST) and
-streams.
+connection lame duck. Left out: authentication.
 """
 from __future__ import annotations
 
 import struct
 import time
 
+import torch
+
+from brpc_tpu_torch import rpcz
 from brpc_tpu_torch.bthread import id as bthread_id
 from brpc_tpu_torch.butil.iobuf import IOBuf
-from brpc_tpu_torch.rpc import errors
+from brpc_tpu_torch.rpc import compress, errors
 from brpc_tpu_torch.rpc.controller import Controller
 from brpc_tpu_torch.rpc.protocol import (
     InputMessageBase,
@@ -139,10 +148,47 @@ def parse(portal: IOBuf, sock, read_eof: bool, arg) -> ParseResult:
     return ParseResult.ok(RpcMessage(meta, payload, attachment))
 
 
+# -- tensor attachment helpers ----------------------------------------------
+
+def attach_arrays(cntl_attachment: IOBuf, meta, arrays):
+    """Describe tensors in ``meta.tensors`` and append them to an
+    attachment (read to the host when the frame is written)."""
+    from brpc_tpu_torch.rpc.device_transport import dtype_name
+
+    for arr in arrays:
+        t = meta.tensors.add()
+        t.dtype = dtype_name(arr.dtype)
+        t.shape.extend(int(d) for d in arr.shape)
+        t.nbytes = arr.numel() * arr.element_size()
+        cntl_attachment.append_device_array(arr)
+
+
+def extract_arrays(attachment: IOBuf, meta):
+    """Host tensors from a tensor-bearing attachment, cut off its front;
+    a meta that does not describe its bytes raises ValueError."""
+    from brpc_tpu_torch.rpc.device_transport import _tensor_spec
+
+    out = []
+    for t in meta.tensors:
+        dtype, shape, nbytes = _tensor_spec(t)
+        if nbytes > len(attachment):
+            raise ValueError(f"tensor of {nbytes} bytes past the attachment")
+        raw = attachment.cutn_bytes(nbytes)
+        host = (torch.frombuffer(raw, dtype=torch.uint8) if nbytes
+                else torch.empty(0, dtype=torch.uint8))
+        out.append(host.view(dtype).reshape(shape))
+    return out
+
+
 # -- client side -----------------------------------------------------------
 
 def serialize_request(request, cntl: Controller) -> bytes:
-    return request.SerializeToString() if request is not None else b""
+    """A message's bytes; bytes are sent as they are (a replay)."""
+    if request is None:
+        return b""
+    if isinstance(request, (bytes, bytearray)):
+        return bytes(request)
+    return request.SerializeToString()
 
 
 def pack_request(payload: bytes, cntl: Controller, correlation_id: int) -> IOBuf:
@@ -150,17 +196,21 @@ def pack_request(payload: bytes, cntl: Controller, correlation_id: int) -> IOBuf
     connection (``cntl._current_sock``), into a copy of the request
     attachment, so a retry does not carry the first attempt's bytes too;
     the send is recorded on the controller, which releases the sends of
-    the attempts that lose."""
+    the attempts that lose. The payload is compressed after the tensors
+    are packed, and the meta keeps the controller's ``compress_type``
+    (the reference's ``prepare_send`` resets it to 0 while its payload
+    stays compressed: ROADMAP queue C #18)."""
     meta = RpcMeta()
     service, _, method = cntl._method_full_name.rpartition(".")
     meta.request.service_name = service
     meta.request.method_name = method
     meta.request.log_id = cntl.log_id
+    meta.request.trace_id = cntl.trace_id
+    meta.request.span_id = cntl.span_id
     if cntl._deadline is not None:
         remain_ms = max(0, int((cntl._deadline - time.monotonic()) * 1000))
         meta.request.timeout_ms = remain_ms
     meta.correlation_id = correlation_id
-    meta.compress_type = cntl.compress_type
     if cntl._request_stream is not None:
         meta.stream_id = cntl._request_stream.stream_id
     attachment = cntl.request_attachment
@@ -179,6 +229,8 @@ def pack_request(payload: bytes, cntl: Controller, correlation_id: int) -> IOBuf
                                                      meta, attachment)
         if seq and ep is not None:
             cntl._sends.append((correlation_id, sock, ep, seq))
+    meta.compress_type = cntl.compress_type
+    payload = compress.compress(payload, cntl.compress_type)
     return pack_frame(meta, payload, attachment)
 
 
@@ -186,14 +238,20 @@ def process_response(msg: RpcMessage):
     """Client completion: lock the attempt's version of the call id and
     hand the controller the response. A response whose id is stale (its
     RPC ended: a late answer to a timed-out or losing attempt) is dropped,
-    after it releases the send its attempt left on the connection."""
+    after it releases the send its attempt left on the connection. A
+    payload that does not decompress fails the RPC with EREQUEST."""
     cid = msg.meta.correlation_id
     try:
         cntl = bthread_id.lock(cid)
     except (KeyError, TimeoutError):
         msg.socket.take_abandoned(cid)
         return
-    cntl._on_response(msg.meta, msg.payload, msg.attachment, msg.socket)
+    try:
+        payload = compress.decompress(msg.payload, msg.meta.compress_type)
+    except ValueError as e:
+        cntl.set_failed(errors.EREQUEST, f"fail to parse response: {e}")
+        payload = b""
+    cntl._on_response(msg.meta, payload, msg.attachment, msg.socket)
 
 
 # -- server side -----------------------------------------------------------
@@ -208,18 +266,22 @@ def send_rpc_response(sock, correlation_id: int, cntl: Controller,
         meta.response.error_text = cntl.error_text_value
     payload = b""
     if response is not None and not cntl.failed():
-        payload = response.SerializeToString()
+        payload = compress.compress(response.SerializeToString(),
+                                    cntl.compress_type)
     meta.compress_type = cntl.compress_type
     if cntl._accepted_stream is not None:
         meta.stream_id = cntl._accepted_stream.stream_id
     sock.write(pack_frame(meta, payload, attachment))
+    if cntl.close_connection_flag:
+        sock.set_failed(errors.ECLOSE, "close_connection requested")
 
 
 def process_request(msg: RpcMessage):
     """Run one request: the interceptor, the method, its MethodStatus (a
-    limiter's refusal is ELIMIT), the request's parse, then the handler
-    with a ``done`` closure that records the latency, returns the session
-    data and sends the response."""
+    limiter's refusal is ELIMIT), the request's decompression and parse,
+    the server span, then the handler with a ``done`` closure that ends
+    the span, records the latency, returns the session data and sends the
+    response."""
     server = msg.arg
     meta = msg.meta
     cid = meta.correlation_id
@@ -230,6 +292,8 @@ def process_request(msg: RpcMessage):
     cntl.service_name = meta.request.service_name
     cntl.method_name = meta.request.method_name
     cntl.log_id = meta.request.log_id
+    cntl.trace_id = meta.request.trace_id
+    cntl.compress_type = meta.compress_type
     cntl.request_attachment = msg.attachment
     cntl._server_socket = sock
     cntl._rpc_meta = meta
@@ -268,11 +332,9 @@ def process_request(msg: RpcMessage):
 
     request = method_info.request_class()
     try:
-        if meta.compress_type != 0:
-            raise ValueError(f"compress_type {meta.compress_type} "
-                             "not supported")
-        if msg.payload:
-            request.ParseFromString(msg.payload)
+        payload = compress.decompress(msg.payload, meta.compress_type)
+        if payload:
+            request.ParseFromString(payload)
     except (DecodeError, ValueError) as e:
         method_status.on_response(errors.EREQUEST, cntl.server_start_time)
         cntl.set_failed(errors.EREQUEST, f"fail to parse request: {e}")
@@ -280,6 +342,11 @@ def process_request(msg: RpcMessage):
 
     response = method_info.response_class()
     responded = [False]
+    span = rpcz.start_server_span(
+        f"{cntl.service_name}.{cntl.method_name}", meta, sock.remote_side)
+    cntl.span = span
+    if span is not None:
+        span.request_size = len(msg.payload)  # as sent: compressed
     if server.session_pool is not None:
         cntl.session_local_data = server.session_pool.borrow()
 
@@ -289,14 +356,18 @@ def process_request(msg: RpcMessage):
         responded[0] = True
         method_status.on_response(cntl.error_code_value,
                                   cntl.server_start_time)
+        if span is not None:
+            span.end(cntl.error_code_value)
         if server.session_pool is not None:
             server.session_pool.return_(cntl.session_local_data)
             cntl.session_local_data = None
         send_rpc_response(sock, cid, cntl, response, cntl.response_attachment)
 
-    # The handler owns `done`; respond for it only if it raises first.
+    # The handler owns `done`; respond for it only if it raises first. Its
+    # own client calls take the server span as their parent.
     try:
-        method_info.handler(service_obj, cntl, request, response, done)
+        with rpcz.parent_scope(span):
+            method_info.handler(service_obj, cntl, request, response, done)
     except Exception as e:
         if not responded[0]:
             cntl.set_failed(errors.EINVAL, f"method raised: {e}")

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --peer`` is the second process of phases 6, 8,
-9, 10 and 12; the script starts it itself.)
+9, 10, 12 and 13; the script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -126,7 +126,36 @@ unavailable, or when the port is not beside it:
             device_block_pool_acquired/released move by exactly the pushes
             made (the blocks 4x); both sides at rest; the peer exits 0.
             Prints each page's latency under load and the trace's size and
-            event counts.
+            event counts;
+13. tracing and recording — one ``--peer`` landing pushes on its card.
+            (a) A trace across three hops: the peer starts a second port
+            Server in its process, and its store forwards each push it
+            lands there. 8 pushes of the activations over the shm lane;
+            for each, the peer's /rpcz?trace_id= holds its server Push,
+            its client Push and the second server's Push, with this
+            process's client span one trace whose parents chain hop by
+            hop, every error 0, and the second server stores each push.
+            (b) The host time of one span opened and ended; then 9b's
+            load (16 connections, 10 rounds) with enable_rpcz on in both
+            processes and off, in turns (on, off, off, on, twice): push
+            and pull + ACK median and p99 of each run; the peer's
+            collector holds one server span per push when on and none
+            when off. (c) SmokePeer.Echo of the
+            flagship's int32 token ids (4 MiB under gzip and zlib, 512 KiB
+            under snappy), request and response compressed: bytes equal,
+            ms per call, the compressed size the peer's span saw; then a
+            push of the activations with compress_type gzip lands on the
+            peer's card bit-equal. (d) A progressive download: the peer
+            answers at once, then writes the activations it holds on its
+            card as 8 chunks of 1 MiB, each copied from the card as it is
+            written; the bytes equal the tensor; MB/s and the time to the
+            first chunk. (e) With rpc_dump on under a temporary directory,
+            16 SmokePeer.Control calls and 16 pushes give 32 records; their
+            replay through a Channel answers the 16 Control calls and fails
+            the 16 Pushes with 1003 "no tensors in request" (the recorder
+            holds no tensors, as in the reference: ROADMAP queue C #16).
+            At the end the peer's windows, arena, streams and card memory
+            are back at rest and it exits 0.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -135,23 +164,29 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import errno
+import glob
 import http.client
 import io
 import json
 import math
 import os
+import re
 import select
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import zipfile
 
 import torch
 
+from brpc_tpu_torch import rpcz
 from brpc_tpu_torch.builtin.profilers import cuda_trace
 from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.butil.recordio import RecordReader
 from brpc_tpu_torch.entry import dryrun_multichip
 from brpc_tpu_torch.parallel import run_ranks
 from brpc_tpu_torch.parallel.world import tensors_to_numpy
@@ -169,10 +204,20 @@ from brpc_tpu_torch.rpc import (
     stream_accept,
     stream_create,
 )
-from brpc_tpu_torch.rpc import cuda_ipc_transfer, errors
+from brpc_tpu_torch.rpc import cuda_ipc_transfer, errors, rpc_dump
 from brpc_tpu_torch.rpc.channel import call_on_socket, get_client_messenger
+from brpc_tpu_torch.rpc.compress import (
+    COMPRESS_GZIP,
+    COMPRESS_SNAPPY,
+    COMPRESS_ZLIB,
+)
 from brpc_tpu_torch.rpc.concurrency_limiter import create_concurrency_limiter
 from brpc_tpu_torch.rpc.http_message import HttpRequest
+from brpc_tpu_torch.rpc.progressive import (
+    ProgressiveReader,
+    attach_progressive_reader,
+    create_progressive_attachment,
+)
 from brpc_tpu_torch.rpc import device_transport as dt
 from brpc_tpu_torch.rpc.proto import wire
 from brpc_tpu_torch.rpc.service import Service, rpc_method
@@ -464,20 +509,66 @@ PEER_READY_S = 180
 LANE_PREFIX = {"wire": "wire::", "shm": "shm:", "xfer": "xfer|"}
 
 
+PROGRESSIVE_CHUNK = 1 << 20  # 13d: under the stream's 2 MiB window
+
+
+class Blob:
+    """A message that is its bytes: 13c's payloads are raw token ids."""
+
+    def __init__(self, data: bytes = b""):
+        self.data = data
+
+    def SerializeToString(self) -> bytes:
+        return self.data
+
+    def ParseFromString(self, data) -> None:
+        self.data = bytes(data)
+
+
 class SmokePeer(Service):
-    """The peer's side door for the checks: set the prefer-xfer flag,
-    overwrite a stored tensor in place, clear the store, slow or land
-    pushes, set a method's limit, stop the server after a while, and
-    report the state of the calling connection's endpoint, every
-    connection's, the lanes, the arena, the block pool, card memory, the
-    thread count and TensorStore.Push's method status (as JSON in the
-    response attachment)."""
+    """The peer's side door for the checks: set the prefer-xfer flag or
+    any flag, overwrite a stored tensor in place, clear the store, slow or
+    land pushes, set a method's limit, stop the server after a while,
+    relay pushes to a second server, clear the spans, and report the
+    state of the calling connection's endpoint, every connection's, the
+    lanes, the arena, the block pool, card memory, the thread count,
+    TensorStore.Push's method status, the relay's store and the server
+    Push spans collected (as JSON in the response attachment). ``Echo``
+    answers 13c's bytes; ``Download`` writes a stored tensor from the card
+    as a progressive attachment (13d)."""
 
     def __init__(self, store: TensorStoreService, streams: "SmokeStreams"):
         self.store = store
         self.streams = streams
         self.stopped_at = None
         self.stop_concurrency = None
+        self.relay = self.relay_store = self.relay_channel = None
+
+    def set_relay(self, on: bool):
+        """13a: a second Server in this process; with ``on`` the store
+        forwards each push it lands there, inside its Push handler (so
+        under the handler's server span)."""
+        if on and self.relay is None:
+            self.relay_store = TensorStoreService()
+            self.relay = Server(ServerOptions(num_threads=PEER_THREADS))
+            check(self.relay.add_service(self.relay_store) == 0,
+                  "relay add_service")
+            check(self.relay.start("127.0.0.1:0") == 0, "relay start")
+            self.relay_channel = make_device_channel(
+                str(self.relay.listen_endpoint))
+        relay = TensorClient(self.relay_channel) if on else None
+
+        def forward(name, arrays):
+            cntl, resp = relay.push(name, arrays)
+            check(not cntl.failed() and resp.ok,
+                  f"relay push {name}: {cntl.error_text}")
+
+        self.store._on_push = forward if on else None
+
+    def close_relay(self):
+        if self.relay is not None:
+            self.relay_channel.close()
+            self.relay.stop()
 
     @rpc_method(wire.TensorPullRequest, wire.TensorAckResponse)
     def Control(self, cntl, request, response, done):
@@ -488,8 +579,10 @@ class SmokePeer(Service):
             for t in self.store.get(cmd["name"]):
                 u8(t).bitwise_not_()  # in place: stored tensors are contiguous
         elif cmd["op"] == "reset":
-            with self.store._lock:
-                self.store._store.clear()
+            for store in (self.store, self.relay_store):
+                if store is not None:
+                    with store._lock:
+                        store._store.clear()
         elif cmd["op"] == "delay":
             self.store.push_delay_s = float(cmd["seconds"])
         elif cmd["op"] == "to_card":
@@ -498,6 +591,13 @@ class SmokePeer(Service):
             status = cntl.server.method_statuses()[cmd["method"]]
             status.limiter = (create_concurrency_limiter(int(cmd["max"]))
                               if cmd["max"] else None)
+        elif cmd["op"] == "relay":
+            self.set_relay(bool(cmd["on"]))
+        elif cmd["op"] == "set_flag":
+            check(flags.set_flag(cmd["name"], cmd["value"]),
+                  f"set flag {cmd['name']}")
+        elif cmd["op"] == "rpcz_clear":
+            rpcz.clear_for_tests()
         elif cmd["op"] == "stop":
             # the server stops after_s from now, wherever its calls are
             srv = cntl.server
@@ -523,6 +623,10 @@ class SmokePeer(Service):
         with self.store._lock:
             contents = {n: [str(t.device) for t in ts]
                         for n, ts in self.store._store.items()}
+        max_spans = flags.get_flag("rpcz_max_spans")
+        server_pushes = sum(
+            1 for sp in rpcz.recent_spans(max_spans)
+            if (sp.kind, sp.full_method) == ("server", PUSH_LABEL))
         state = {
             "all_retained": sum(e.retained_count for e in eps),
             "all_inflight": sum(e.inflight_bytes for e in eps),
@@ -543,6 +647,11 @@ class SmokePeer(Service):
             "pool_free": {str(dev): {str(k): v for k, v in pool.stats().items()}
                           for dev, pool in list(dt._default_pools.items())},
             "streams": self.streams.state(),
+            "relay_stored": (sorted(self.relay_store._store)
+                             if self.relay_store is not None else None),
+            "rpcz": {"server_pushes": server_pushes, "max_spans": max_spans,
+                     "sample_every": flags.get_flag("rpcz_sample_every"),
+                     "enabled": flags.get_flag("enable_rpcz")},
             "push_status": {
                 "concurrency": push.concurrency,
                 "rejected_count": push.rejected_count,
@@ -553,6 +662,36 @@ class SmokePeer(Service):
         cntl.response_attachment.append(json.dumps(state).encode())
         response.ok = True
         done()
+
+    @rpc_method(Blob, Blob)
+    def Echo(self, cntl, request, response, done):
+        """13c: the bytes back, compressed as the request was."""
+        response.data = request.data
+        done()
+
+    @rpc_method(wire.TensorPullRequest, wire.TensorAckResponse)
+    def Download(self, cntl, request, response, done):
+        """13d: answer at once, then write the stored tensor from the card
+        in PROGRESSIVE_CHUNK pieces, each copied to the host as it is
+        written, and close."""
+        held = self.store.get(request.name)
+        pa = create_progressive_attachment(cntl) if held else None
+        response.ok = pa is not None
+        done()
+        if pa is None:
+            return
+        flat = u8(held[0])
+
+        def write_all():
+            try:
+                for i in range(0, flat.numel(), PROGRESSIVE_CHUNK):
+                    chunk = flat[i:i + PROGRESSIVE_CHUNK].cpu().numpy()
+                    if pa.write(chunk.tobytes()) != 0:
+                        return  # the client sees the body cut short
+            finally:
+                pa.close()
+
+        threading.Thread(target=write_all, daemon=True).start()
 
 
 class SmokeStore(TensorStoreService):
@@ -611,6 +750,7 @@ def peer_main() -> int:
     while srv.is_running and not quit_.wait(0.05):
         pass
     srv.stop()
+    side.close_relay()
     if side.stopped_at is not None:
         print(f"peer stopped {side.stopped_at} {side.stop_concurrency}",
               flush=True)
@@ -2290,6 +2430,359 @@ def phase_console(tag: str, gen):
     print("console " + json.dumps(result))
     return result
 
+# -- phase 13: spans, compression, a progressive download, record, replay ---
+
+TRACE_PUSHES_13 = 8
+CODECS_13 = (("gzip", COMPRESS_GZIP, 4 << 20), ("zlib", COMPRESS_ZLIB, 4 << 20),
+             ("snappy", COMPRESS_SNAPPY, 512 << 10))  # snappy is pure Python
+REPLAYS_13 = 16
+_SPAN_LINE = re.compile(
+    r"trace=([0-9a-f]{16}) span=([0-9a-f]{16}) parent=([0-9a-f]{16}) "
+    r"\[(\w+)\] (\S+) remote=\S+ latency=(\d+)us error=(-?\d+) "
+    r"req=(\d+)B resp=(\d+)B")
+
+
+def peer_spans(port: int, trace_id: int):
+    """The spans of one trace on the peer's /rpcz page, and the page's ms."""
+    status, _, body, ms = http_get(port, f"/rpcz?trace_id={trace_id:x}")
+    check(status == 200, f"13: /rpcz answered {status}")
+    spans = []
+    for line in body.decode().splitlines():
+        m = _SPAN_LINE.match(line)
+        if m:
+            spans.append({"trace": int(m[1], 16), "span": int(m[2], 16),
+                          "parent": int(m[3], 16), "kind": m[4],
+                          "method": m[5], "latency_us": int(m[6]),
+                          "error": int(m[7]), "req": int(m[8])})
+    return spans, ms
+
+
+def trace_three_hops(port: int, ctl, devch, act, tag: str) -> dict:
+    """13a: each push's four spans, linked hop by hop."""
+    client = TensorClient(devch)
+    peer_control(ctl, "relay", on=True)
+    push_s, page_ms, sizes = [], [], set()
+    for i in range(TRACE_PUSHES_13):
+        t0 = time.perf_counter()
+        cntl, resp = client.push(f"t{i}", [act])
+        push_s.append(time.perf_counter() - t0)
+        check(not cntl.failed() and resp.ok, f"13a push {i}: {cntl.error_text}")
+        mine = rpcz.find_trace(cntl.trace_id)
+        check(len(mine) == 1 and (mine[0].kind, mine[0].full_method,
+                                  mine[0].error_code)
+              == ("client", PUSH_LABEL, 0),
+              f"13a push {i}: this process's spans {[s.describe() for s in mine]}")
+        theirs, ms = peer_spans(port, cntl.trace_id)
+        page_ms.append(ms)
+        chain, parent = [], mine[0].span_id
+        for kind in ("server", "client", "server"):
+            hop = [s for s in theirs if s["parent"] == parent]
+            check(len(hop) == 1 and hop[0]["kind"] == kind
+                  and hop[0]["method"] == PUSH_LABEL and hop[0]["error"] == 0
+                  and hop[0]["trace"] == cntl.trace_id,
+                  f"13a push {i}: no {kind} span under {parent:016x} "
+                  f"on the peer: {theirs}")
+            chain.append(hop[0])
+            parent = hop[0]["span"]
+        check(len(theirs) == 3, f"13a push {i}: the peer's trace {theirs}")
+        sizes.add(chain[0]["req"])
+    st = peer_control(ctl, "state")
+    want = sorted(f"t{i}" for i in range(TRACE_PUSHES_13))
+    check(st["relay_stored"] == want,
+          f"13a: the second server stores {st['relay_stored']}")
+    check(all(d.startswith("cuda") for n in want for d in st["contents"][n]),
+          "13a: a push is not on the peer's card")
+    peer_control(ctl, "relay", on=False)
+    out = {"pushes": TRACE_PUSHES_13, "push_ms_median": _ms(push_s),
+           "rpcz_page_ms_median": round(statistics.median(page_ms), 3),
+           "server_span_request_size_B": sorted(sizes)}
+    print(f"tracing/13a: {TRACE_PUSHES_13} pushes of {list(act.shape)} "
+          f"{act.dtype} (push median {out['push_ms_median']} ms), each one "
+          f"trace of 4 spans: this process's client Push -> the peer's "
+          f"server Push -> its client Push -> the second server's Push, "
+          f"parents chained, errors 0, the second server holding each; "
+          f"/rpcz?trace_id= median {out['rpcz_page_ms_median']} ms; the "
+          f"server span's request_size {sorted(sizes)} B for "
+          f"{act.numel() * act.element_size()} B of tensor (queue C #17) "
+          f"{tag}")
+    return out
+
+
+# spans on and off in turns, so that neither always runs first or last
+RPCZ_TURNS_13 = (True, False, False, True) * 2
+SPANS_TIMED_13 = 10000
+
+
+def rpcz_cost(port: int, ctl, act, naming: dict, tag: str) -> dict:
+    """13b: the host time of one span, then 9b's load with spans on in
+    both processes and off, in turns."""
+    holder = Controller()
+    t0 = time.perf_counter()
+    for _ in range(SPANS_TIMED_13):
+        rpcz.start_client_span(PUSH_LABEL, holder).end(0)
+    span_us = (time.perf_counter() - t0) / SPANS_TIMED_13 * 1e6
+    rpcz.clear_for_tests()
+    out = {"span_open_end_us": round(span_us, 3), "on": [], "off": []}
+    try:
+        for on in RPCZ_TURNS_13:
+            label = "on" if on else "off"
+            check(flags.set_flag("enable_rpcz", on), "enable_rpcz here")
+            peer_control(ctl, "set_flag", name="enable_rpcz", value=on)
+            peer_control(ctl, "rpcz_clear")
+            res, socks = serve_concurrent(port, ctl, act, naming,
+                                          f"(13b, rpcz {label}) {tag}")
+            for sock in socks:
+                sock.recycle()
+            st = peer_control(ctl, "state")["rpcz"]
+            pushes = THREADS_9B * ROUNDS_9B
+            want = min(pushes, st["max_spans"]) if on else 0
+            check(st["sample_every"] == 1 and st["server_pushes"] == want,
+                  f"13b rpcz {label}: the peer collected "
+                  f"{st['server_pushes']} server Push spans, want {want}")
+            run = {k: res[k] for k in (
+                "push_ms_median", "push_ms_p99", "pull_ack_ms_median",
+                "pull_ack_ms_p99", "aggregate_GBps")}
+            run["peer_server_push_spans"] = st["server_pushes"]
+            out[label].append(run)
+    finally:
+        flags.set_flag("enable_rpcz", True)
+        peer_control(ctl, "set_flag", name="enable_rpcz", value=True)
+
+    def runs(label, key):
+        return [r[key] for r in out[label]]
+
+    turns = ", ".join("on" if on else "off" for on in RPCZ_TURNS_13)
+    print(f"tracing/13b: a span opened and ended in {out['span_open_end_us']} "
+          f"us on this host; 9b's load ({THREADS_9B} connections x {ROUNDS_9B} "
+          f"push + pull + ACK) in turns {turns}; rpcz on: "
+          f"push median {runs('on', 'push_ms_median')} ms p99 "
+          f"{runs('on', 'push_ms_p99')} ms, pull+ACK median "
+          f"{runs('on', 'pull_ack_ms_median')} ms, "
+          f"{runs('on', 'peer_server_push_spans')} server Push spans on the "
+          f"peer; off: push median {runs('off', 'push_ms_median')} ms p99 "
+          f"{runs('off', 'push_ms_p99')} ms, pull+ACK median "
+          f"{runs('off', 'pull_ack_ms_median')} ms, "
+          f"{runs('off', 'peer_server_push_spans')} spans {tag}")
+    return out
+
+
+def _push_compressed(devch, name: str, tensors, ctype: int):
+    """TensorClient.push with the request message compressed."""
+    cntl = Controller()
+    cntl.timeout_ms = 60000
+    cntl.compress_type = ctype
+    cntl._outbound_tensors = tensors
+    resp = wire.TensorPushResponse()
+    devch.call_method("TensorStore.Push", cntl,
+                      wire.TensorPushRequest(name=name), resp)
+    check(not cntl.failed() and resp.ok,
+          f"13c compressed push: {cntl.error_text}")
+    ep = cntl._current_sock.app_state
+    if isinstance(ep, dt.DeviceEndpoint) and resp.ack_seq:
+        ep.on_ack(resp.ack_seq)
+    return cntl
+
+
+def compressed_calls(port: int, ctl, devch, act, gen, tag: str) -> dict:
+    """13c: token ids each way under every codec, then a gzip push."""
+    dev = torch.device("cuda")
+    n = max(nbytes for _, _, nbytes in CODECS_13) // 4
+    tokens = torch.randint(0, BIG.vocab, (n,), dtype=torch.int32, device=dev,
+                           generator=gen)
+    raw = tokens.cpu().numpy().tobytes()
+    out = {}
+    for codec, ctype, nbytes in CODECS_13:
+        data = raw[:nbytes]
+        cntl = Controller()
+        cntl.timeout_ms = 60000
+        cntl.compress_type = ctype
+        resp = Blob()
+        t0 = time.perf_counter()
+        ctl.call_method("SmokePeer.Echo", cntl, Blob(data), resp)
+        ms = round((time.perf_counter() - t0) * 1e3, 3)
+        check(not cntl.failed(), f"13c {codec}: {cntl.error_text}")
+        check(resp.data == data, f"13c {codec}: the echoed bytes differ")
+        check(cntl._response_rpc_meta.compress_type == ctype,
+              f"13c {codec}: the response came with compress_type "
+              f"{cntl._response_rpc_meta.compress_type}")
+        server = [s for s in peer_spans(port, cntl.trace_id)[0]
+                  if s["kind"] == "server"]
+        check(len(server) == 1 and 0 < server[0]["req"] < nbytes,
+              f"13c {codec}: the peer's span {server}")
+        out[codec] = {"bytes": nbytes, "compressed_bytes": server[0]["req"],
+                      "ms": ms}
+    cntl = _push_compressed(devch, "gz", [act], COMPRESS_GZIP)
+    server = [s for s in peer_spans(port, cntl.trace_id)[0]
+              if s["kind"] == "server"]
+    check(len(server) == 1 and server[0]["error"] == 0,
+          f"13c gzip push: the peer's span {server}")
+    st = peer_control(ctl, "state")
+    check([d[:4] for d in st["contents"]["gz"]] == ["cuda"],
+          "13c gzip push: not on the peer's card")
+    pcntl, got = TensorClient(devch).pull("gz", device=dev)
+    check(not pcntl.failed() and got is not None
+          and torch.equal(u8(got[0]), u8(act)),
+          f"13c gzip push: the landing differs ({pcntl.error_text})")
+    out["gzip_push"] = {"request_payload_B": server[0]["req"],
+                        "tensor_B": act.numel() * act.element_size()}
+    print("tracing/13c: SmokePeer.Echo of the flagship's int32 token ids, "
+          "request and response compressed, bytes equal: " + ", ".join(
+              f"{c} {v['bytes']} B -> {v['compressed_bytes']} B in "
+              f"{v['ms']} ms" for c, v in out.items() if c != "gzip_push")
+          + f"; a gzip push of {list(act.shape)} {act.dtype} "
+          f"({out['gzip_push']['request_payload_B']} B of payload) landed "
+          f"on the peer's card bit-equal {tag}")
+    return out
+
+
+def progressive_download(ctl, devch, act, tag: str) -> dict:
+    """13d: the activations from the peer's card, chunk by chunk."""
+    cntl, resp = TensorClient(devch).push("p13", [act])
+    check(not cntl.failed() and resp.ok, f"13d push: {cntl.error_text}")
+    want = u8(act).cpu().numpy().tobytes()
+    reader = ProgressiveReader()
+    cntl = Controller()
+    cntl.timeout_ms = 60000
+    attach_progressive_reader(cntl, reader)
+    resp = wire.TensorAckResponse()
+    t0 = time.perf_counter()
+    ctl.call_method("SmokePeer.Download", cntl,
+                    wire.TensorPullRequest(name="p13"), resp)
+    check(not cntl.failed() and resp.ok, f"13d Download: {cntl.error_text}")
+    chunks, first = [], None
+    while True:
+        chunk = reader.next_chunk(STREAM_WAIT_S)
+        if chunk is None:
+            break
+        first = first or time.perf_counter()
+        chunks.append(chunk)
+    wall = time.perf_counter() - t0
+    check(reader.ended, "13d: the body did not end")
+    check(len(chunks) == len(want) // PROGRESSIVE_CHUNK
+          and b"".join(chunks) == want,
+          f"13d: {len(chunks)} chunks, {sum(map(len, chunks))} B, not the "
+          f"tensor's bytes")
+    out = {"bytes": len(want), "chunks": len(chunks),
+           "first_chunk_ms": round((first - t0) * 1e3, 3),
+           "MBps": round(len(want) / wall / 1e6, 3)}
+    print(f"tracing/13d: a progressive download of {len(want)} B in "
+          f"{len(chunks)} chunks from the peer's card, equal to the tensor; "
+          f"first chunk after {out['first_chunk_ms']} ms, {out['MBps']} MB/s "
+          f"{tag}")
+    return out
+
+
+def record_and_replay(port: int, ctl, devch, act, tag: str) -> dict:
+    """13e: rpc_dump of Control calls and pushes, then their replay."""
+    directory = tempfile.mkdtemp(prefix="chip_smoke_rpc_dump_")
+    client = TensorClient(devch)
+    try:
+        rpc_dump.reset_for_tests()  # the next record opens a new file
+        check(flags.set_flag("rpc_dump_dir", directory), "rpc_dump_dir")
+        check(flags.set_flag("rpc_dump", True), "rpc_dump")
+        try:
+            for i in range(REPLAYS_13):
+                peer_control(ctl, "state")
+                cntl, resp = client.push(f"r{i}", [act])
+                check(not cntl.failed() and resp.ok,
+                      f"13e push {i}: {cntl.error_text}")
+        finally:
+            flags.set_flag("rpc_dump", False)
+            rpc_dump.reset_for_tests()  # closes the file
+        records = []
+        for path in sorted(glob.glob(os.path.join(directory, "*.rio"))):
+            with RecordReader(path) as reader:
+                records.extend(reader)
+        methods = sorted(f"{m['service']}.{m['method']}" for m, _ in records)
+        check(methods == ["SmokePeer.Control"] * REPLAYS_13
+              + [PUSH_LABEL] * REPLAYS_13,
+              f"13e: the dump holds {len(records)} records: {methods}")
+        push_bytes = {len(p) for m, p in records if m["method"] == "Push"}
+        replay = Channel()
+        check(replay.init(f"127.0.0.1:{port}") == 0, "13e: replay channel")
+        outcomes = {}
+        t0 = time.perf_counter()
+        try:
+            for meta, payload in records:  # as tools/rpc_replay.py does
+                cntl, _ = replay.call(f"{meta['service']}.{meta['method']}",
+                                      payload, None, timeout_ms=60000,
+                                      log_id=meta.get("log_id", 0))
+                key = f"{meta['method']} {cntl.error_code} {cntl.error_text}"
+                outcomes[key] = outcomes.get(key, 0) + 1
+        finally:
+            replay.close()
+        ms = round((time.perf_counter() - t0) * 1e3, 3)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    want = {"Control 0 ": REPLAYS_13,
+            f"Push {errors.EREQUEST} no tensors in request": REPLAYS_13}
+    check(outcomes == want, f"13e: the replay gave {outcomes}, want {want}")
+    out = {"records": len(records), "push_record_bytes": sorted(push_bytes),
+           "replay_ms": ms, "outcomes": outcomes}
+    print(f"tracing/13e: rpc_dump recorded {len(records)} requests "
+          f"({REPLAYS_13} SmokePeer.Control, {REPLAYS_13} pushes of "
+          f"{sorted(push_bytes)} B each: the tensors are not recorded); "
+          f"replayed in {ms} ms: the Control calls answered, every Push "
+          f"failed with {errors.EREQUEST} \"no tensors in request\" as in the "
+          f"reference (queue C #16) {tag}")
+    return out
+
+
+def phase_tracing(tag: str, gen, naming: dict):
+    """13: rpcz across three hops and its cost on the lane, compression,
+    a progressive download from the card, rpc_dump and its replay."""
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    act = torch.randn((BATCH, SEQ, BIG.d_model), dtype=torch.bfloat16,
+                      device=dev, generator=gen)
+    proc, port = start_peer()
+    ctl = devch = None
+    result, rc = {}, None
+    streams0 = find_exposed("stream_count").get_value()
+    try:
+        ctl = Channel()
+        check(ctl.init(f"127.0.0.1:{port}") == 0, "control channel init")
+        peer_control(ctl, "to_card", on=True)
+        devch = _device_channel(f"127.0.0.1:{port}")
+        # a warm landing and pull, then the peer's card memory at rest
+        client = TensorClient(devch)
+        check(not client.push("warm", [act])[0].failed(), "13: warm push")
+        check(not client.pull("warm", device=dev)[0].failed(), "13: warm pull")
+        peer0 = peer_control(ctl, "reset")["memory_allocated"]
+        result["trace"] = trace_three_hops(port, ctl, devch, act, tag)
+        result["rpcz_cost"] = rpcz_cost(port, ctl, act, naming, tag)
+        result["compress"] = compressed_calls(port, ctl, devch, act, gen, tag)
+        result["progressive"] = progressive_download(ctl, devch, act, tag)
+        result["rpc_dump"] = record_and_replay(port, ctl, devch, act, tag)
+        st = peer_control(ctl, "reset")
+        _peer_at_rest(st, "13")
+        _pool_full(st, "13")
+        _client_at_rest(devch, "13")
+        check(st["memory_allocated"] == peer0,
+              f"13: card memory leaked in the peer: {peer0} -> "
+              f"{st['memory_allocated']} B")
+        check(st["streams"]["stream_count"] == 0
+              and find_exposed("stream_count").get_value() == streams0,
+              f"13: streams left open: the peer's "
+              f"{st['streams']['stream_count']}, here "
+              f"{find_exposed('stream_count').get_value()} (was {streams0})")
+        rc = stop_peer(proc)
+        proc = None
+        check(rc == 0, f"13: the peer exited with code {rc}")
+    finally:
+        flags.set_flag("rpc_dump", False)
+        for ch in (ctl, devch):
+            if ch is not None:
+                ch.close()
+        if proc is not None:
+            stop_peer(proc)
+    result["seconds"] = round(time.perf_counter() - t_start, 1)
+    print(f"tracing/13: the peer's windows, arena, streams and card memory "
+          f"({st['memory_allocated']} B) at rest, the peer exited 0; phase "
+          f"took {result['seconds']} s {tag}")
+    print("tracing " + json.dumps(result))
+    return result
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2319,6 +2812,7 @@ def main() -> int:
     phase_streams(tag, gen)
     phase_trace(tokens, tag)
     phase_console(tag, gen)
+    phase_tracing(tag, gen, naming)
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "

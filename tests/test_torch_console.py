@@ -139,7 +139,7 @@ def test_health_and_version(servers):
 
 def test_index_protobufs_and_list(servers):
     got = _both(servers, "/index")
-    ref_only = {b"  /fleet", b"  /rpc_dump", b"  /rpcz"}  # not ported yet
+    ref_only = {b"  /fleet"}  # not ported yet
     ref_lines = [ln for ln in got["ref"][2].split(b"\n") if ln not in ref_only]
     assert got["port"][2].split(b"\n") == ref_lines
     for path in ("/protobufs", "/list"):
