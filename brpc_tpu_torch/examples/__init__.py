@@ -1,0 +1,15 @@
+"""examples — the twins of the repo's ``examples/`` on the port.
+
+Each module keeps its reference file's name, prints the reference's lines
+(only the numbers differ) and has ``main(argv=None) -> int``:
+
+    python -m brpc_tpu_torch.examples.echo demo [--device cpu]
+    python -m brpc_tpu_torch.examples.tensor_transport --mb 8 --iters 10
+
+``--device`` (default ``cuda``) goes to every ``ServerOptions`` and to the
+device channels; without a card ``cuda`` raises and never falls back to
+the CPU. ``tensor_transport`` and ``device_performance`` push tensors;
+``parallel_echo`` and ``tensor_transport`` run their mesh halves on
+``parallel.run_ranks`` when there are two cards or more (``--ranks`` on
+the CPU). The other examples are host programs.
+"""

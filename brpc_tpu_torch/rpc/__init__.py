@@ -21,7 +21,7 @@ from brpc_tpu_torch.rpc.combo_channels import (  # noqa: F401
 )
 from brpc_tpu_torch.rpc.controller import Controller, RetryPolicy  # noqa: F401
 from brpc_tpu_torch.rpc.server import Server, ServerOptions  # noqa: F401
-from brpc_tpu_torch.rpc.service import Service, rpc_method  # noqa: F401
+from brpc_tpu_torch.rpc.service import ClosureGuard, Service, rpc_method  # noqa: F401
 from brpc_tpu_torch.rpc.stream import (  # noqa: F401
     Stream,
     StreamInputHandler,

@@ -120,6 +120,18 @@ class Server:
                     service, minfo, MethodStatus(full, limiter))
         return 0
 
+    def remove_service(self, service: Service) -> int:
+        """Take a service and its methods out before start; -1 when
+        running or when the service was not added."""
+        name = service.service_name()
+        with self._lock:
+            if self._started or name not in self._services:
+                return -1
+            del self._services[name]
+            for key in [k for k in self._methods if k[0] == name]:
+                del self._methods[key]
+        return 0
+
     def find_service(self, name: str) -> Optional[Service]:
         return self._services.get(name)
 
@@ -218,6 +230,15 @@ class Server:
     def join(self, timeout: Optional[float] = None) -> int:
         self._stopped_event.wait(timeout)
         return 0
+
+    def run_until_asked_to_quit(self):
+        """Serve until stopped or interrupted (Ctrl-C stops and joins)."""
+        try:
+            while self._started:
+                time.sleep(0.5)
+        except KeyboardInterrupt:
+            self.stop()
+            self.join()
 
     @property
     def is_running(self) -> bool:

@@ -11,7 +11,7 @@ Port of brpc_tpu/rpc/service.py: a Service subclass declares methods with
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Type
+from typing import Callable, Dict, NamedTuple, Optional, Type
 
 
 class MethodInfo(NamedTuple):
@@ -47,3 +47,29 @@ class Service:
             if info is not None:
                 out[attr] = MethodInfo(attr, info[0], info[1], fn)
         return out
+
+
+class ClosureGuard:
+    """Runs done() on exit unless released (brpc::ClosureGuard)."""
+
+    def __init__(self, done: Optional[Callable]):
+        self._done = done
+
+    def release(self):
+        d, self._done = self._done, None
+        return d
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self._done is not None:
+            self._done()
+            self._done = None
+
+    def __del__(self):
+        if self._done is not None:
+            try:
+                self._done()
+            except Exception:
+                pass

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --peer`` is the second process of phases 6, 8,
-9, 10, 12 and 13; the script starts it itself.)
+9, 10, 12, 13 and 14; the script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -151,11 +151,35 @@ unavailable, or when the port is not beside it:
             written; the bytes equal the tensor; MB/s and the time to the
             first chunk. (e) With rpc_dump on under a temporary directory,
             16 SmokePeer.Control calls and 16 pushes give 32 records; their
-            replay through a Channel answers the 16 Control calls and fails
-            the 16 Pushes with 1003 "no tensors in request" (the recorder
-            holds no tensors, as in the reference: ROADMAP queue C #16).
-            At the end the peer's windows, arena, streams and card memory
-            are back at rest and it exits 0.
+            replay by ``brpc_tpu_torch.tools.rpc_replay`` prints ok=16
+            failed=16 skipped=0, and the peer's server spans show the 16
+            Control calls answered and the 16 Pushes failed with 1003 (the
+            recorder holds no tensors, as in the reference: ROADMAP queue
+            C #16). At the end the peer's windows, arena, streams and card
+            memory are back at rest and it exits 0;
+14. examples and tools — the port's programs (``brpc_tpu_torch.examples``,
+            ``brpc_tpu_torch.tools``) on the card, beside one ``--peer``
+            that lands every push on its card and serves an EchoService.
+            (a) ``tensor_transport --mb 8 --iters 10`` as a user runs it:
+            in process a ticket stands for the card tensor, the pull is
+            verified bit for bit, and its own server in a subprocess takes
+            the shm lane; then its cross-process pushes of a random 8 MiB
+            card tensor at the peer, by shm and by xfer (the prefer-xfer
+            flag in both processes), each lane moved 11 times, x0 pulled
+            back bit-equal, the peer's windows, pool and card memory at rest
+            after. (b) ``device_performance`` as the reference writes it:
+            host bytes on the in-process ticket lane, no card memory
+            allocated (it never touches the card); then its pushers at the
+            peer, 4 threads x 8 MiB x 16 pushes over shm, every push on the
+            peer's card, 0 errors: avg, p99 and GB/s. (c) ``rpc_press`` at
+            the peer's EchoService for 3 s with 4 threads unthrottled, at
+            ``--qps 200`` (within 10%, 0 errors), and 1 s over HTTP. (e)
+            ``rpc_view`` of the peer's /vars: TensorStore_Push_count moved
+            by 14b's pushes, the pool's counts balanced; ``parallel_http``
+            with 64 fetches of /status on 4 threads, all answered; a
+            trackme ping to a ``trackme_server`` here, counted under the
+            port's version. (f) Each host example once, exit code 0. (d is
+            13e's replay.) The peer exits 0.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -164,6 +188,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import errno
+import gc
 import glob
 import http.client
 import io
@@ -188,10 +213,32 @@ from brpc_tpu_torch.builtin.profilers import cuda_trace
 from brpc_tpu_torch.butil import flags
 from brpc_tpu_torch.butil.recordio import RecordReader
 from brpc_tpu_torch.entry import dryrun_multichip
+from brpc_tpu_torch.examples import (
+    asynchronous_echo,
+    auto_concurrency_limiter,
+    backup_request,
+    cascade_echo,
+    device_performance,
+    dynamic_partition_echo,
+    echo,
+    http_server,
+    multi_threaded_echo,
+    partition_echo,
+    selective_echo,
+    session_data,
+    streaming_echo,
+    tensor_transport,
+)
 from brpc_tpu_torch.parallel import run_ranks
 from brpc_tpu_torch.parallel.world import tensors_to_numpy
 from brpc_tpu_torch.butil.endpoint import EndPoint
-from brpc_tpu_torch.bvar import expose_default_variables, find_exposed
+import brpc_tpu_torch
+from brpc_tpu_torch.bvar import (
+    Adder,
+    LatencyRecorder,
+    expose_default_variables,
+    find_exposed,
+)
 from brpc_tpu_torch.rpc import (
     Channel,
     ChannelOptions,
@@ -204,7 +251,7 @@ from brpc_tpu_torch.rpc import (
     stream_accept,
     stream_create,
 )
-from brpc_tpu_torch.rpc import cuda_ipc_transfer, errors, rpc_dump
+from brpc_tpu_torch.rpc import cuda_ipc_transfer, errors, rpc_dump, trackme
 from brpc_tpu_torch.rpc.channel import call_on_socket, get_client_messenger
 from brpc_tpu_torch.rpc.compress import (
     COMPRESS_GZIP,
@@ -228,6 +275,13 @@ from brpc_tpu_torch.rpc.tensor_service import (
     make_device_channel,
 )
 from brpc_tpu_torch.tensor import ModelConfig, forward_local, init_params
+from brpc_tpu_torch.tools import (
+    parallel_http,
+    rpc_press,
+    rpc_replay,
+    rpc_view,
+    trackme_server,
+)
 from brpc_tpu_torch.tensor.config import MeshSpec
 from brpc_tpu_torch.tensor.model import make_spmd_train_step, params_from_numpy
 
@@ -694,6 +748,17 @@ class SmokePeer(Service):
         threading.Thread(target=write_all, daemon=True).start()
 
 
+class SmokeEcho(Service):
+    """The echo service rpc_press drives at the peer (phase 14c)."""
+
+    SERVICE_NAME = "EchoService"
+
+    @rpc_method(wire.EchoRequest, wire.EchoResponse)
+    def Echo(self, cntl, request, response, done):
+        response.message = request.message
+        done()
+
+
 class SmokeStore(TensorStoreService):
     """The peer's store. Phases 8 and 9 switch on ``to_card`` (a push
     lands on the peer's card, through the block pool, before it is
@@ -737,7 +802,7 @@ def peer_main() -> int:
     streams = SmokeStreams()
     side = SmokePeer(store, streams)
     srv = Server(ServerOptions(num_threads=PEER_THREADS))
-    for svc in (store, side, streams):
+    for svc in (store, side, streams, SmokeEcho()):
         check(srv.add_service(svc) == 0, "peer add_service")
     check(srv.start("127.0.0.1:0") == 0, "peer server start")
     arena = dt.default_send_arena()  # named here: a killed peer leaves it
@@ -2698,33 +2763,42 @@ def record_and_replay(port: int, ctl, devch, act, tag: str) -> dict:
               + [PUSH_LABEL] * REPLAYS_13,
               f"13e: the dump holds {len(records)} records: {methods}")
         push_bytes = {len(p) for m, p in records if m["method"] == "Push"}
-        replay = Channel()
-        check(replay.init(f"127.0.0.1:{port}") == 0, "13e: replay channel")
-        outcomes = {}
+        # the replay by the port's tool; its server spans on the peer say
+        # how each call ended
+        peer_control(ctl, "rpcz_clear")
+        printed = io.StringIO()
         t0 = time.perf_counter()
-        try:
-            for meta, payload in records:  # as tools/rpc_replay.py does
-                cntl, _ = replay.call(f"{meta['service']}.{meta['method']}",
-                                      payload, None, timeout_ms=60000,
-                                      log_id=meta.get("log_id", 0))
-                key = f"{meta['method']} {cntl.error_code} {cntl.error_text}"
-                outcomes[key] = outcomes.get(key, 0) + 1
-        finally:
-            replay.close()
+        with contextlib.redirect_stdout(printed):
+            rc = rpc_replay.main(["--dir", directory, "--server",
+                                  f"127.0.0.1:{port}", "--timeout-ms",
+                                  "60000"])
         ms = round((time.perf_counter() - t0) * 1e3, 3)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
-    want = {"Control 0 ": REPLAYS_13,
-            f"Push {errors.EREQUEST} no tensors in request": REPLAYS_13}
+    line = printed.getvalue().strip()
+    check(rc == 1 and line.startswith(
+        f"replayed ok={REPLAYS_13} failed={REPLAYS_13} skipped=0 in "),
+        f"13e: rpc_replay exited {rc}: {line!r}")
+    status, _, body, _ = http_get(port, "/rpcz?limit=200")
+    check(status == 200, f"13e: /rpcz answered {status}")
+    outcomes = {}
+    for m in map(_SPAN_LINE.match, body.decode().splitlines()):
+        if m and m[4] == "server":
+            key = f"{m[5]} {m[7]}"
+            outcomes[key] = outcomes.get(key, 0) + 1
+    # the Control call that cleared the spans is the 17th Control span
+    want = {"SmokePeer.Control 0": REPLAYS_13 + 1,
+            f"{PUSH_LABEL} {errors.EREQUEST}": REPLAYS_13}
     check(outcomes == want, f"13e: the replay gave {outcomes}, want {want}")
     out = {"records": len(records), "push_record_bytes": sorted(push_bytes),
-           "replay_ms": ms, "outcomes": outcomes}
+           "replay_ms": ms, "replay_line": line, "outcomes": outcomes}
     print(f"tracing/13e: rpc_dump recorded {len(records)} requests "
           f"({REPLAYS_13} SmokePeer.Control, {REPLAYS_13} pushes of "
           f"{sorted(push_bytes)} B each: the tensors are not recorded); "
-          f"replayed in {ms} ms: the Control calls answered, every Push "
-          f"failed with {errors.EREQUEST} \"no tensors in request\" as in the "
-          f"reference (queue C #16) {tag}")
+          f"replayed by tools/rpc_replay in {ms} ms ({line}): the Control "
+          f"calls answered, every Push "
+          f"failed with {errors.EREQUEST} on the peer (its server spans), "
+          f"as in the reference (queue C #16) {tag}")
     return out
 
 
@@ -2784,6 +2858,318 @@ def phase_tracing(tag: str, gen, naming: dict):
     return result
 
 
+# -- phase 14: the examples and the tools -------------------------------------
+
+MB_14, ITERS_14 = 8, 10  # tensor_transport --mb 8 --iters 10
+PUSHERS_14 = (4, 8, 16)  # 14b at the peer: threads, MiB, pushes each
+PRESS_S_14 = 3.0
+PRESS_QPS_14 = 200
+FETCHES_14 = (64, 4)  # 14e: fetches of /status, threads
+VARS_14 = ("TensorStore_Push_count", "device_block_pool_acquired",
+           "device_block_pool_released", "device_transport_zero_copy_transfers",
+           "device_transport_shm_transfers", "device_transport_wire_transfers",
+           "device_transport_xfer_transfers")
+HOST_EXAMPLES_14 = (
+    (echo, ["demo"]), (asynchronous_echo, []),
+    (multi_threaded_echo, ["--threads", "2", "--seconds", "0.5"]),
+    (streaming_echo, []), (http_server, []), (session_data, []),
+    (backup_request, []), (auto_concurrency_limiter, []), (cascade_echo, []),
+    (partition_echo, []), (selective_echo, []), (dynamic_partition_echo, []))
+
+
+def run_main(main, argv):
+    """(exit code, printed lines, seconds) of a program's main, run here."""
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = main(argv)
+    return rc, printed.getvalue().splitlines(), round(
+        time.perf_counter() - t0, 3)
+
+
+def _one_line(lines, prefix: str, what: str) -> str:
+    hit = [line for line in lines if line.startswith(prefix)]
+    check(len(hit) == 1, f"{what}: no one line {prefix!r} in {lines}")
+    return hit[0]
+
+
+def _rate(line: str) -> float:
+    return float(re.search(r"-> ([0-9.]+) GB/s", line)[1])
+
+
+def transport_example(tag: str) -> dict:
+    """14a, as a user runs it: tensor_transport on the card, in process
+    (a ticket stands for the card tensor) and to its own port server in a
+    subprocess on the same card (the shm lane)."""
+    rc, lines, secs = run_main(tensor_transport.main,
+                               ["--mb", str(MB_14), "--iters", str(ITERS_14)])
+    check(rc == 0, f"14a: tensor_transport exited {rc}: {lines}")
+    check(_one_line(lines, "endpoint state: ", "14a")
+          == "endpoint state: 2 (2=ESTABLISHED, 3=FALLBACK_TCP), "
+             "same_process=True", f"14a: {lines}")
+    inproc = _one_line(lines, f"pushed {ITERS_14} x {MB_14}MB in ", "14a")
+    _one_line(lines, "pull verified", "14a")
+    cross = _one_line(lines, "cross-process pushed ", "14a")
+    check(cross.endswith("(shm lane, same_host=True, same_process=False)"),
+          f"14a: {cross}")
+    check(not any(line.startswith("mesh allreduce") for line in lines),
+          "14a: a mesh probe on one card")
+    out = {"seconds": secs, "inproc_ticket_GBps": _rate(inproc),
+           "example_server_shm_GBps": _rate(cross)}
+    print(f"examples/14a: tensor_transport --mb {MB_14} --iters {ITERS_14} "
+          f"in {secs} s: in process {out['inproc_ticket_GBps']} GB/s (a "
+          f"ticket for the card tensor, no bytes moved), the pull verified "
+          f"bit for bit; to its own server in a subprocess "
+          f"{out['example_server_shm_GBps']} GB/s by shm {tag}")
+    return out
+
+
+def transport_at_peer(ctl, devch, gen, tag: str) -> dict:
+    """14a at the peer: the example's cross-process pushes of a random 8
+    MiB card tensor, landed on the peer's card, by shm and by xfer (the
+    prefer-xfer flag in both processes); x0 pulled back bit-equal."""
+    dev = torch.device("cuda")
+    x = torch.randn(((MB_14 << 20) // 4,), dtype=torch.float32, device=dev,
+                    generator=gen)
+    client = TensorClient(devch)
+    out = {}
+    try:
+        for lane in ("shm", "xfer"):
+            on = lane == "xfer"
+            flags.set_flag(PREFER_XFER, on)
+            peer_control(ctl, "flag", on=on)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                run = tensor_transport.across_processes(client, x, MB_14,
+                                                        ITERS_14)
+            moved = {k: v for k, v in run["lanes"].items() if v}
+            check(moved == {lane: ITERS_14 + 1},
+                  f"14a {lane}: the pushes moved the lanes {moved}")
+            pcntl, got = client.pull("x0", device=dev)
+            check(not pcntl.failed() and got is not None
+                  and torch.equal(u8(got[0]), u8(x)),
+                  f"14a {lane}: x0 pulled back differs ({pcntl.error_text})")
+            del got
+            st = peer_control(ctl, "state")
+            check(all(d.startswith("cuda") for i in range(ITERS_14)
+                      for d in st["contents"][f"x{i}"]),
+                  f"14a {lane}: a push is not on the peer's card")
+            nbytes = x.numel() * x.element_size()
+            out[lane] = {
+                "GBps": round(nbytes * ITERS_14 / run["seconds"] / 1e9, 3),
+                "push_ms_mean": round(run["seconds"] / ITERS_14 * 1e3, 3),
+                "line": printed.getvalue().strip()}
+    finally:
+        flags.set_flag(PREFER_XFER, False)
+        peer_control(ctl, "flag", on=False)
+    print(f"examples/14a at the peer: {ITERS_14} pushes of {MB_14} MiB "
+          f"landed on its card, x0 pulled back bit-equal: shm "
+          f"{out['shm']['GBps']} GB/s ({out['shm']['push_ms_mean']} ms a "
+          f"push), xfer {out['xfer']['GBps']} GB/s "
+          f"({out['xfer']['push_ms_mean']} ms); the example's line for xfer "
+          f"names the lane by the reference's rule: {out['xfer']['line']!r} "
+          f"{tag}")
+    return out
+
+
+def pushers_example(port: int, ctl, tag: str) -> dict:
+    """14b: device_performance as the reference writes it (host bytes,
+    in process: the card is not touched), then its pushers at the peer,
+    which lands each push on its card."""
+    lanes0 = dt.lane_counters()
+    gc.collect()  # tensors of earlier phases in cycles go now, not during
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rc, lines, secs = run_main(device_performance.main, [])
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.max_memory_allocated()
+    lanes1 = dt.lane_counters()
+    check(rc == 0, f"14b: device_performance exited {rc}: {lines}")
+    check(lines[0] == "lane=inproc pushes=16 errors=0", f"14b: {lines}")
+    moved = {k: lanes1[k] - lanes0[k] for k in lanes1 if lanes1[k] - lanes0[k]}
+    check(moved == {"inproc": 16}, f"14b: the example moved {moved}")
+    check(mem1 == mem0, f"14b: card memory {mem0} B, at most {mem1} B "
+          f"while device_performance ran")
+    check(lines[-1].startswith("native bulk lane unavailable: "),
+          f"14b: {lines[-1]}")
+    out = {"example": {"seconds": secs, "lines": lines[:3],
+                       "card_bytes_allocated": mem1 - mem0}}
+
+    threads, mb, iters = PUSHERS_14
+    target = f"127.0.0.1:{port}"
+    rec, moved_b, errs = LatencyRecorder(), Adder(), Adder()
+    lanes0 = dt.lane_counters()
+    wall = device_performance.run_pushers(
+        target, device_performance.make_payload(mb), threads, iters, "cuda",
+        rec, moved_b, errs)
+    lanes1 = dt.lane_counters()
+    moved = {k: lanes1[k] - lanes0[k] for k in lanes1 if lanes1[k] - lanes0[k]}
+    pushes = threads * iters
+    check(errs.get_value() == 0 and rec.count() == pushes,
+          f"14b: {errs.get_value()} errors, {rec.count()} pushes")
+    st = peer_control(ctl, "state")
+    names = [f"t{t}.{i}" for t in range(threads) for i in range(iters)]
+    check(all(st["contents"].get(n, [""])[0].startswith("cuda")
+              for n in names), "14b: a push is not on the peer's card")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        device_performance.report(rec, moved_b, errs, wall, moved)
+    out["at_peer"] = {
+        "pushes": pushes, "errors": errs.get_value(), "lanes": moved,
+        "avg_ms": round(rec.latency() / 1e3, 3),
+        "p99_ms": round(rec.latency_percentile(0.99) / 1e3, 3),
+        "max_ms": round(rec.max_latency() / 1e3, 3),
+        "GBps": round(moved_b.get_value() / wall / 1e9, 3),
+        "wall_s": round(wall, 3), "lines": printed.getvalue().splitlines()}
+    print(f"examples/14b: device_performance as the reference writes it "
+          f"({secs} s): {lines[0]}, its payload host bytes on the "
+          f"in-process ticket lane, {mem1 - mem0} B of card memory "
+          f"allocated: it never touches the card; its pushers at the peer "
+          f"({threads} threads x {mb} MiB x {iters}): "
+          f"{out['at_peer']['lines']} {tag}")
+    return out
+
+
+def press_example(port: int, tag: str) -> dict:
+    """14c: rpc_press at the peer's EchoService: unthrottled, at --qps
+    200, and over HTTP."""
+    base = ["--server", f"127.0.0.1:{port}", "--method", "EchoService.Echo",
+            "--input", '{"message": "chip"}', "--threads", "4"]
+    out = {}
+    for label, extra in (
+            ("unthrottled", ["--duration", str(PRESS_S_14)]),
+            (f"qps{PRESS_QPS_14}", ["--duration", str(PRESS_S_14), "--qps",
+                                    str(PRESS_QPS_14)]),
+            ("http", ["--duration", "1", "--protocol", "http"])):
+        gc.collect()  # leave no collection of this large heap pending
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = rpc_press.press(rpc_press.parse_args(base + extra))
+        check(res["sent"] > 0 and res["errors"] == 0,
+              f"14c {label}: {printed.getvalue()}")
+        out[label] = {k: round(v, 3) for k, v in res.items()}
+    got = out[f"qps{PRESS_QPS_14}"]["qps"]
+    check(abs(got - PRESS_QPS_14) <= 0.1 * PRESS_QPS_14,
+          f"14c: --qps {PRESS_QPS_14} achieved {got} qps")
+    print("examples/14c: rpc_press at the peer's EchoService, 4 threads: "
+          + "; ".join(f"{k} {v['sent']} calls, {v['qps']} qps, errors "
+                      f"{v['errors']}, avg {v['avg_us']} us, p99 "
+                      f"{v['p99_us']} us" for k, v in out.items()) + f" {tag}")
+    return out
+
+
+def console_example(port: int, vars0: bytes, pushes: int, tag: str) -> dict:
+    """14e: rpc_view of the peer's /vars against 14b's pushes,
+    parallel_http over /status, a trackme ping to a trackme_server here."""
+    target = f"127.0.0.1:{port}"
+    rc, lines, _ = run_main(rpc_view.main, [target, "vars"])
+    check(rc == 0, f"14e: rpc_view exited {rc}")
+    page = "\n".join(lines).encode()
+    deltas = {n: _var_of(page, n) - _var_of(vars0, n) for n in VARS_14}
+    check(deltas["TensorStore_Push_count"] == pushes,
+          f"14e: /vars counts {deltas} for {pushes} pushes")
+    check(deltas["device_block_pool_acquired"]
+          == deltas["device_block_pool_released"],
+          f"14e: the peer's pool is not balanced: {deltas}")
+    n, threads = FETCHES_14
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        got = parallel_http.fetch_all([f"http://{target}/status"] * n,
+                                      threads, 60)
+    check((got["fetched"], got["ok"], got["failed"]) == (n, n, 0),
+          f"14e: parallel_http {printed.getvalue()}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        srv, counts = trackme_server.start(0, "", "cuda")
+    try:
+        check(flags.set_flag("trackme_server", str(srv.listen_endpoint)),
+              "14e: trackme_server flag")
+        pinged = trackme._ping_once()
+    finally:
+        flags.set_flag("trackme_server", "")
+        srv.stop()
+    check(pinged and counts == {brpc_tpu_torch.__version__: 1},
+          f"14e: trackme counted {counts}")
+    out = {"vars_deltas": deltas, "parallel_http": {
+        k: round(v, 3) for k, v in got.items()}, "trackme": counts}
+    print(f"examples/14e: rpc_view {target} vars: 14b moved {deltas}; "
+          f"parallel_http {printed.getvalue().strip()}; a trackme ping "
+          f"counted {counts} {tag}")
+    return out
+
+
+def host_examples(tag: str) -> dict:
+    """14f: each host example once, here, on the card's servers."""
+    out = {}
+    for module, argv in HOST_EXAMPLES_14:
+        name = module.__name__.rsplit(".", 1)[1]
+        rc, lines, secs = run_main(module.main, argv)
+        check(rc == 0, f"14f {name} exited {rc}: {lines}")
+        out[name] = secs
+    print(f"examples/14f: every host example exited 0, seconds each "
+          f"{out} {tag}")
+    return out
+
+
+def _reset_at_rest(ctl, devch, peer0: int, what: str) -> dict:
+    """Clear the peer's store; both sides at rest, the peer's card memory
+    back at ``peer0`` (its pool)."""
+    st = peer_control(ctl, "reset")
+    _peer_at_rest(st, what)
+    _pool_full(st, what)
+    _client_at_rest(devch, what)
+    check(st["memory_allocated"] == peer0,
+          f"{what}: the peer's card memory {peer0} -> "
+          f"{st['memory_allocated']} B")
+    return st
+
+
+def phase_examples(tag: str, gen):
+    """14: the examples and the tools on the card, against one --peer."""
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    proc = spawn_peer()  # starts while 14a's example starts its own server
+    ctl = devch = None
+    result, st = {}, {}
+    try:
+        result["transport"] = transport_example(tag)
+        port, _ = await_peer(proc)
+        ctl = Channel()
+        check(ctl.init(f"127.0.0.1:{port}") == 0, "control channel init")
+        peer_control(ctl, "to_card", on=True)
+        devch = _device_channel(f"127.0.0.1:{port}")
+        # a warm landing and pull, then the peer's card memory at rest
+        warm = torch.ones((1 << 20,), dtype=torch.float32, device=dev)
+        client = TensorClient(devch)
+        check(not client.push("warm", [warm])[0].failed(), "14: warm push")
+        check(not client.pull("warm", device=dev)[0].failed(), "14: warm pull")
+        peer0 = peer_control(ctl, "reset")["memory_allocated"]
+        result["transport_at_peer"] = transport_at_peer(ctl, devch, gen, tag)
+        _reset_at_rest(ctl, devch, peer0, "14a")
+        vars0 = rpc_view.fetch(f"127.0.0.1:{port}", "vars").encode()
+        result["pushers"] = pushers_example(port, ctl, tag)
+        st = _reset_at_rest(ctl, devch, peer0, "14b")
+        result["press"] = press_example(port, tag)
+        result["console"] = console_example(
+            port, vars0, result["pushers"]["at_peer"]["pushes"], tag)
+        result["host_examples"] = host_examples(tag)
+        rc = stop_peer(proc)
+        proc = None
+        check(rc == 0, f"14: the peer exited with code {rc}")
+    finally:
+        for ch in (ctl, devch):
+            if ch is not None:
+                ch.close()
+        if proc is not None:
+            stop_peer(proc)
+    result["seconds"] = round(time.perf_counter() - t_start, 1)
+    print(f"examples/14: the peer's windows, arena, pool and card memory "
+          f"({st['memory_allocated']} B) at rest after 14a and 14b, the peer "
+          f"exited 0; phase took {result['seconds']} s {tag}")
+    print("examples " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2813,6 +3199,7 @@ def main() -> int:
     phase_trace(tokens, tag)
     phase_console(tag, gen)
     phase_tracing(tag, gen, naming)
+    phase_examples(tag, gen)
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "

@@ -258,6 +258,18 @@ CLIENT_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "rpc.socket_map", "rpc.controller", "rpc.load_balancer",
     "rpc.naming_service", "rpc.circuit_breaker", "rpc.cluster_recover",
     "rpc.channel", "rpc.combo_channels", "rpc.tensor_service")]
+# the examples' and the tools' twins, each a program a user starts
+PROGRAM_MODULES = [f"brpc_tpu_torch.{m}" for m in (
+    "examples.echo", "examples.asynchronous_echo",
+    "examples.multi_threaded_echo", "examples.streaming_echo",
+    "examples.http_server", "examples.session_data",
+    "examples.backup_request", "examples.auto_concurrency_limiter",
+    "examples.cascade_echo", "examples.partition_echo",
+    "examples.selective_echo", "examples.dynamic_partition_echo",
+    "examples.tensor_transport", "examples.device_performance",
+    "examples.parallel_echo", "tools.rpc_press", "tools.rpc_replay",
+    "tools.rpc_view", "tools.parallel_http", "tools.trackme_server",
+    "rpc.trackme")]
 
 
 def test_port_imports_no_jax_protobuf_or_reference():
@@ -271,7 +283,8 @@ def test_port_imports_no_jax_protobuf_or_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith("
         "('jax', 'ml_dtypes')) or m.split('.')[0] == 'brpc_tpu'"
         " or m.startswith('google.protobuf'))\n"
-        f"missing = sorted(set({CLIENT_MODULES!r}) - set(sys.modules))\n"
+        f"missing = sorted(set({CLIENT_MODULES + PROGRAM_MODULES!r})"
+        " - set(sys.modules))\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n"
     )

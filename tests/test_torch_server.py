@@ -27,6 +27,8 @@
   holds its worker until the window's timeout, and the ACK that would
   open the window waits behind it.
 * A DeviceEndpoint reached from many threads at once ends at rest.
+* ``remove_service``, ``run_until_asked_to_quit`` and ``ClosureGuard``
+  give the reference's outcomes.
 
 Every server is stopped by its fixture or in ``finally``; every wait has a
 deadline.
@@ -675,6 +677,44 @@ def test_pull_waiting_for_the_window_holds_its_worker(monkeypatch):
             one.stop_and_join()
     assert got["port"][0] == got["ref"][0] == (0, 0)
     assert got["port"][1] >= 0.25 and got["ref"][1] >= 0.25
+
+
+# -- the service table's rest and ClosureGuard ---------------------------------
+
+def test_remove_service_and_closure_guard_like_the_reference():
+    """remove_service before start, twice, after start;
+    run_until_asked_to_quit returns once the server stops; ClosureGuard
+    run on exit, released, and dropped: the same outcomes in both
+    packages."""
+    ref_get_task_control()
+    got = {}
+    for pkg, (mod, msgs, _pools, opts) in PKGS.items():
+        svc = _echo_service(mod, msgs)()
+        srv = mod.Server(opts())
+        out = [srv.add_service(svc), srv.remove_service(svc),
+               srv.remove_service(svc), srv.find_service("EchoService"),
+               sorted(srv.method_statuses()), srv.add_service(svc)]
+        assert srv.start("127.0.0.1:0") == 0
+        serving = threading.Thread(target=srv.run_until_asked_to_quit)
+        serving.start()
+        try:
+            out.append(srv.remove_service(svc))
+            out.append(srv.find_service("EchoService") is svc)
+        finally:
+            srv.stop()
+        serving.join(WAIT_S)
+        out.append(serving.is_alive())
+        calls = []
+        with mod.ClosureGuard(lambda: calls.append("exit")):
+            pass
+        guard = mod.ClosureGuard(lambda: calls.append("released"))
+        out.append(guard.release() is not None)
+        del guard
+        guard = mod.ClosureGuard(lambda: calls.append("dropped"))
+        del guard
+        got[pkg] = out + [calls]
+    assert got["port"] == got["ref"] == [
+        0, 0, -1, None, [], 0, -1, True, False, True, ["exit", "dropped"]]
 
 
 # -- the endpoint reached from many workers -------------------------------------

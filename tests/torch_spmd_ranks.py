@@ -1,5 +1,6 @@
 """Rank functions for the port's SPMD tests (tests/test_torch_parallel.py,
-tests/test_torch_spmd.py).
+tests/test_torch_spmd.py, and the examples' mesh halves in
+tests/test_torch_examples.py).
 
 A spawned rank imports the module of the function it runs, so these live
 apart from the test modules, which import jax. The tests import this file
@@ -127,3 +128,20 @@ def failing_rank(device):
 
 def sleeping_rank(device, seconds):
     time.sleep(seconds)
+
+
+def example_mesh_halves(device):
+    """The mesh halves of the port's tensor_transport and parallel_echo
+    examples, on one world: the bandwidth probe's stats, the fused
+    fan-out's merged value, and the first element of one all-reduce of the
+    probe's payload (ones), which the reference's probe reduces as one
+    scalar (ROADMAP queue C #7)."""
+    from brpc_tpu_torch.examples.parallel_echo import mesh_fanout_rank
+    from brpc_tpu_torch.examples.tensor_transport import mesh_probe_rank
+
+    probe = mesh_probe_rank(device, 1 << 16, 2)
+    merged = mesh_fanout_rank(device)
+    mesh = RankMesh(MeshSpec(dp=torch.distributed.get_world_size()))
+    ones = torch.ones((probe["payload_bytes"] // 4,), device=device)
+    reduced = float(collectives.psum(ones, mesh, "dp")[0])
+    return {"probe": probe, "merged": merged, "reduced": reduced}
