@@ -19,10 +19,15 @@ to find:
 * ``rpcz`` — a span for each call on both sides, one trace across hops
   and packages, browsable at ``/rpcz``;
 * ``entry`` — ``entry(device=None)`` and ``dryrun_multichip``, the
-  counterparts of ``__graft_entry__``'s.
+  counterparts of ``__graft_entry__``'s;
+* ``fleet`` — mergeable log2 histograms and the SLO burn-rate engine.
+
+``Status`` (butil/status.py) is exported here, as the reference does.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA a request for the card raises.
 """
 
 __version__ = "0.1.0"
+
+from brpc_tpu_torch.butil.status import Status  # noqa: F401,E402

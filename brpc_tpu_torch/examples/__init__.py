@@ -11,5 +11,6 @@ device channels; without a card ``cuda`` raises and never falls back to
 the CPU. ``tensor_transport`` and ``device_performance`` push tensors;
 ``parallel_echo`` and ``tensor_transport`` run their mesh halves on
 ``parallel.run_ranks`` when there are two cards or more (``--ranks`` on
-the CPU). The other examples are host programs.
+the CPU). The other examples are host programs; ``grpc_echo`` calls one
+server over gRPC and over tpu_std on its one port.
 """

@@ -31,10 +31,13 @@ is attached before their first connect), and the channel keeps the
 endpoint that retains it. ``call_on_socket`` sends a call on one given
 connection; TensorClient sends that ACK with it.
 
-``protocol`` is ``tpu_std`` (the default) or ``http`` (requests as
-JSON, pipelined on a connection, rpc/http_protocol.py); any other is
-refused with EPROTONOTSUP. Channels of different protocols to one server
-do not share a connection.
+``protocol`` is ``tpu_std`` (the default), ``http`` (requests as
+JSON, pipelined on a connection, rpc/http_protocol.py) or ``h2:grpc``
+(unary gRPC, a stream per call on one HTTP/2 connection,
+rpc/h2_protocol.py); any other is refused with EPROTONOTSUP. Channels of
+different protocols to one server do not share a connection. A
+protocol's ``on_pinned`` hook becomes each new connection's
+``on_connected``, so h2's preface is sent before the connection is read.
 
 Left out of the reference's options: ``auth``, ``use_ssl`` and
 ``ssl_verify`` (the port has no authenticator and no TLS), and the other
@@ -217,6 +220,13 @@ class Channel:
     def _connect_timeout_s(self) -> float:
         return self.options.connect_timeout_ms / 1000.0
 
+    def _pin_protocol(self, sock: Socket):
+        """The protocol's client hook (h2 attaches its connection state and
+        sends its preface) runs when ``sock`` connects, before it joins the
+        dispatcher: a peer that speaks first finds the state there."""
+        if self._protocol.on_pinned is not None and sock.on_connected is None:
+            sock.on_connected = self._protocol.on_pinned
+
     def _connect_new_socket(self, ep: EndPoint, node_sid: int):
         factory = self._app_connect_factory()
         sid = Socket.create(
@@ -225,6 +235,7 @@ class Channel:
             app_connect=factory() if factory is not None else None)
         sock = Socket.address(sid)
         sock.node_sid = node_sid or sid
+        self._pin_protocol(sock)
         if sock.connect(self._connect_timeout_s()) != 0:
             sock.recycle()
             return None
@@ -256,6 +267,7 @@ class Channel:
             if (factory is not None and main_sock.app_connect is None
                     and main_sock.fd() is None):
                 main_sock.app_connect = factory()
+            self._pin_protocol(main_sock)
             if main_sock.ensure_connected(self._connect_timeout_s()) != 0:
                 return None, errors.EFAILEDSOCKET
             return main_sock, 0
@@ -310,8 +322,10 @@ class Channel:
             self._mapped_key, self._mapped_sid = key, sid
             self._single_sid = sid
             sock = Socket.address(sid)
-            if sock is None or sock.ensure_connected(
-                    self._connect_timeout_s()) != 0:
+            if sock is None:
+                return None, errors.EFAILEDSOCKET
+            self._pin_protocol(sock)
+            if sock.ensure_connected(self._connect_timeout_s()) != 0:
                 return None, errors.EFAILEDSOCKET
             return sock, 0
 

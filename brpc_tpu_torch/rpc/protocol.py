@@ -8,12 +8,18 @@ priority order, and keeps the one that matched; ``process_inline`` marks a proto
 at once in the reading task, in wire order (the device handshake must be
 done before the first request of its connection runs).
 
-The port registers four protocols: ``tpu_std`` (rpc/tpu_std_protocol.py),
+The port registers five protocols: ``tpu_std`` (rpc/tpu_std_protocol.py),
 ``streaming`` (rpc/streaming_protocol.py), ``device_handshake``
-(rpc/tensor_service.py) and ``http`` (rpc/http_protocol.py). HTTP is
-tried last: the three framings claim a short first read that could still
-become their magic ("T" of "TRPC") before HTTP sees it. A channel packs
-through ``tpu_std`` or ``http``, the protocols with a ``pack_request``.
+(rpc/tensor_service.py), ``http`` (rpc/http_protocol.py) and ``h2:grpc``
+(rpc/h2_protocol.py). HTTP comes after the three framings: they claim a
+short first read that could still become their magic ("T" of "TRPC")
+before HTTP sees it. h2 comes last: its preface ``PRI * ...`` is no
+HTTP/1 request line, and a first read of "P" that HTTP claims (it could
+begin ``POST``) goes to h2 once the next bytes show it cannot. A channel
+packs through ``tpu_std``, ``http`` or ``h2:grpc``, the protocols with a
+``pack_request``. ``on_pinned`` is the hook of a protocol whose client
+speaks first: it runs on a new connection before the connection joins
+the event dispatcher (h2 sends its preface there).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ class ProtocolType(IntEnum):
     TPU_STD = 1  # framed pb-meta protocol (baidu_std's role)
     STREAMING = 2  # stream frames (streaming_rpc's role)
     HTTP = 3  # HTTP/1.1: pb over HTTP and the builtin console
+    H2 = 4  # HTTP/2 with the gRPC unary mapping
     TENSOR = 9  # the device handshake of the tensor lane
 
 
@@ -94,6 +101,9 @@ class Protocol:
     # on_packed(socket, controller, correlation_id) [client]: runs under
     # the socket's write lock as the request is queued
     on_packed: Callable = None
+    # on_pinned(socket) [client]: runs as a connection is made, before it
+    # joins the dispatcher, and again when it is revived
+    on_pinned: Callable = None
 
 
 _protocols: Dict[ProtocolType, Protocol] = {}
@@ -126,6 +136,7 @@ _PARSE_PRIORITY = {
     ProtocolType.STREAMING: 1,
     ProtocolType.TENSOR: 2,
     ProtocolType.HTTP: 3,
+    ProtocolType.H2: 4,
 }
 
 
@@ -146,6 +157,7 @@ def globally_initialize():
     with _init_lock:
         if _globally_initialized:
             return
+        from brpc_tpu_torch.rpc import h2_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import http_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import streaming_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import tensor_service  # noqa: F401

@@ -29,7 +29,15 @@ registered with an event dispatcher; no thread belongs to it:
   blocking socket, before it joins the dispatcher) and ``app_state``,
   which holds the connection's DeviceEndpoint. A connection that fails
   or closes releases every send its endpoint still retains: no ACK can
-  reach it any more.
+  reach it any more;
+* the ``on_connected`` seam: the hook of a protocol whose client speaks
+  first (h2's preface and SETTINGS), run after ``app_connect`` and before
+  the socket joins the dispatcher, so a peer that answers at once finds
+  the connection's protocol state attached;
+* protocol state: whatever a protocol attaches to a socket (HTTP's ids in
+  request order, h2's connection) is every attribute beyond those a new
+  socket has, and a revived socket drops it all: it does not hold for
+  the new connection.
 """
 from __future__ import annotations
 
@@ -108,6 +116,10 @@ def _tcp_probe(sock: "Socket") -> bool:
 
 
 class Socket:
+    # the attributes a new socket has: anything beyond them is protocol
+    # state, dropped on revival (captured from the first socket made)
+    _core_attrs: "frozenset[str]" = None
+
     def __init__(self, fd: Optional[pysocket.socket] = None,
                  remote_side: Optional[EndPoint] = None):
         """Made by ``Socket.create``: with ``fd`` an accepted connection
@@ -122,6 +134,7 @@ class Socket:
         self.matched_protocol = None  # kept by the InputMessenger
         self.app_state = None  # the connection's DeviceEndpoint, if any
         self.app_connect: Optional[Callable[["Socket"], int]] = None
+        self.on_connected: Optional[Callable[["Socket"], None]] = None
         self.connection_type = "single"
         self.health_check_interval_s = -1.0
         self.lame_duck = False
@@ -145,6 +158,8 @@ class Socket:
         self._epollout = threading.Event()
         self._reading = False
         self._reading_lock = threading.Lock()
+        if Socket._core_attrs is None:
+            Socket._core_attrs = frozenset(self.__dict__)
 
     # -- ids ---------------------------------------------------------------
     @classmethod
@@ -194,8 +209,9 @@ class Socket:
     # -- connect -----------------------------------------------------------
     def connect(self, timeout_s: float = 1.0) -> int:
         """Dial the peer, run the app_connect hook on the blocking socket
-        (the device handshake owns the connection's first bytes), then
-        make it non-blocking and register it with the dispatcher."""
+        (the device handshake owns the connection's first bytes), make it
+        non-blocking, run the on_connected hook (a failure of it fails the
+        connect) and register it with the dispatcher."""
         try:
             fd = pysocket.create_connection(self.remote_side.as_sockaddr(),
                                             timeout=timeout_s)
@@ -215,6 +231,13 @@ class Socket:
                 self.set_failed(rc, "app connect failed")
                 return rc
         fd.setblocking(False)
+        if self.on_connected is not None:
+            try:
+                self.on_connected(self)
+            except Exception as e:
+                self.set_failed(errors.EFAILEDSOCKET,
+                                f"on_connected hook failed: {e}")
+                return errors.EFAILEDSOCKET
         with self._state_lock:
             if self._failed or self._fd is not fd:
                 return self.error_code or errors.EFAILEDSOCKET
@@ -452,9 +475,11 @@ class Socket:
                 self.read_portal = IOBuf()
                 self.matched_protocol = None
                 # what a protocol kept for the old connection (HTTP's
-                # ids in request order) does not hold for the new one
-                for name in ("_http_pipeline", "_http_saw_keepalive"):
-                    self.__dict__.pop(name, None)
+                # ids in request order, h2's connection) does not hold
+                # for the new one
+                for name in [n for n in self.__dict__
+                             if n not in Socket._core_attrs]:
+                    del self.__dict__[name]
                 self._epollout = threading.Event()
             rc = self.connect()
             if rc != 0:

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --peer`` is the second process of phases 6, 8,
-9, 10, 12, 13 and 14; the script starts it itself.)
+9, 10, 12, 13, 14 and 15; the script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -179,7 +179,33 @@ unavailable, or when the port is not beside it:
             with 64 fetches of /status on 4 threads, all answered; a
             trackme ping to a ``trackme_server`` here, counted under the
             port's version. (f) Each host example once, exit code 0. (d is
-            13e's replay.) The peer exits 0.
+            13e's replay.) The peer exits 0;
+15. grpc — one ``--peer`` whose one port serves TensorStore, the
+            console, SmokeEcho and, with h2, gRPC. (a) A port
+            ``Channel(protocol="h2:grpc")``: 200 sequential Echo calls
+            (median and p99 us), 16 threads at once on one connection each
+            getting its own reply, an unknown method giving ENOMETHOD, and
+            a 300 ms handler under a 100 ms timeout giving ERPCTIMEDOUT
+            (the peer reads the grpc-timeout); a tpu_std Echo and GET
+            /status answer on the same port between them. (b) An 8 MiB
+            ASCII string made on this card from the seeded generator,
+            echoed over h2 5 times and landed on the card bit-equal: ms a
+            call, MB/s beside phase 6's wire lane at 8 MiB, and the DATA
+            and WINDOW_UPDATE frames each side read (both connection
+            windows are crossed). (c) ``rpc_press --protocol h2:grpc`` at
+            the Echo with 4 threads, 3 s unthrottled and 3 s at ``--qps
+            200``, beside 14c's tpu_std numbers. (d) During the
+            unthrottled run, 16 pushes of the activations by shm to the
+            same port land on the peer's card bit-equal; then /status
+            counts every Echo call made, /vars TensorStore_Push_count moved
+            by 16, every h2 stream is closed and window whole, the device
+            endpoints, arena and pool at rest. (e) The ``grpc_echo``
+            example exits 0 with the reference's two lines. (f) 15c's
+            latencies, in ``fleet.hist`` log2 buckets one rollup a second,
+            go through one ``SloEngine`` latency objective with
+            second-long windows: the burn rates and the alert state are
+            printed, and the samples ingested must equal the calls made.
+            The peer exits 0.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -221,6 +247,7 @@ from brpc_tpu_torch.examples import (
     device_performance,
     dynamic_partition_echo,
     echo,
+    grpc_echo,
     http_server,
     multi_threaded_echo,
     partition_echo,
@@ -233,6 +260,7 @@ from brpc_tpu_torch.parallel import run_ranks
 from brpc_tpu_torch.parallel.world import tensors_to_numpy
 from brpc_tpu_torch.butil.endpoint import EndPoint
 import brpc_tpu_torch
+from brpc_tpu_torch import bvar, fleet
 from brpc_tpu_torch.bvar import (
     Adder,
     LatencyRecorder,
@@ -251,7 +279,13 @@ from brpc_tpu_torch.rpc import (
     stream_accept,
     stream_create,
 )
-from brpc_tpu_torch.rpc import cuda_ipc_transfer, errors, rpc_dump, trackme
+from brpc_tpu_torch.rpc import (
+    cuda_ipc_transfer,
+    errors,
+    h2_protocol,
+    rpc_dump,
+    trackme,
+)
 from brpc_tpu_torch.rpc.channel import call_on_socket, get_client_messenger
 from brpc_tpu_torch.rpc.compress import (
     COMPRESS_GZIP,
@@ -701,6 +735,9 @@ class SmokePeer(Service):
             "pool_free": {str(dev): {str(k): v for k, v in pool.stats().items()}
                           for dev, pool in list(dt._default_pools.items())},
             "streams": self.streams.state(),
+            "h2": [h2_state(s.h2_conn) for s in conns
+                   if getattr(s, "h2_conn", None) is not None],
+            "echo_timeouts_ms": SmokeEcho.timeouts_ms,
             "relay_stored": (sorted(self.relay_store._store)
                              if self.relay_store is not None else None),
             "rpcz": {"server_pushes": server_pushes, "max_spans": max_spans,
@@ -749,12 +786,19 @@ class SmokePeer(Service):
 
 
 class SmokeEcho(Service):
-    """The echo service rpc_press drives at the peer (phase 14c)."""
+    """The echo service rpc_press drives at the peer (phases 14c and 15c),
+    over tpu_std, HTTP and gRPC. A request's ``sleep_us`` holds the
+    answer; the timeout that came with such a request (over gRPC, its
+    ``grpc-timeout``) is kept in ``timeouts_ms`` (15a)."""
 
     SERVICE_NAME = "EchoService"
+    timeouts_ms = []
 
     @rpc_method(wire.EchoRequest, wire.EchoResponse)
     def Echo(self, cntl, request, response, done):
+        if request.sleep_us:
+            SmokeEcho.timeouts_ms.append(cntl.timeout_ms)
+            time.sleep(request.sleep_us / 1e6)
         response.message = request.message
         done()
 
@@ -1043,6 +1087,7 @@ def phase_cross_process(tag: str, gen):
                 ch.close()
         rc = stop_peer(proc)
     check(failed or rc == 0, f"the peer exited with code {rc}")
+    return {f"{lane}/{label}": m for (lane, label), m in medians.items()}
 
 
 # -- phase 7: training on the card -------------------------------------------
@@ -2274,11 +2319,12 @@ def _var_of(text: bytes, name: str, sep: bytes = b" : ") -> int:
     raise RuntimeError(f"chip_smoke: {name} is not on the page")
 
 
-def _push_count(status_page: bytes) -> int:
+def _push_count(status_page: bytes, method: str = PUSH_LABEL) -> int:
+    """The count /status gives ``method`` (TensorStore.Push by default)."""
     for line in status_page.split(b"\n"):
-        if line.startswith(b"TensorStore.Push: "):
+        if line.startswith(method.encode() + b": "):
             return int(line.split(b" count=")[1].split()[0])
-    raise RuntimeError("chip_smoke: /status lists no TensorStore.Push")
+    raise RuntimeError(f"chip_smoke: /status lists no {method}")
 
 
 def summarize_peer_trace(body: bytes) -> dict:
@@ -3170,6 +3216,411 @@ def phase_examples(tag: str, gen):
     return result
 
 
+# -- phase 15: gRPC over h2 on the peer's one port ------------------------------
+
+GRPC = "h2:grpc"
+ECHO = "EchoService.Echo"
+SEQ_15 = 200  # 15a: sequential calls
+CONC_15 = 16  # 15a: threads calling at once on one connection
+SLOW_15 = (300_000, 100)  # 15a: the handler's sleep (us), the timeout (ms)
+BIG_15 = 8 << 20  # 15b: an ASCII message made on the card
+ROUNDS_15 = 5
+PUSHES_15 = 16  # 15d: activations pushed by shm while 15c runs
+SLO_15 = dict(ceiling_ms=5.0, budget=0.01, fast_window_s=1.0,
+              slow_window_s=3.0)  # 15f: second-long windows
+
+
+def h2_state(conn) -> dict:
+    """What an h2 connection holds: open streams, queued DATA, its send
+    window and the DATA and WINDOW_UPDATE frames it read."""
+    with conn.lock:
+        return {"streams": len(conn.streams),
+                "pending": sum(len(st.pending_out) + (st.pending_trailers
+                                                      is not None)
+                               for st in conn.streams.values()),
+                "send_window": conn.send_window,
+                "data_in": conn.frames_in.get(h2_protocol.F_DATA, 0),
+                "window_updates_in": conn.frames_in.get(
+                    h2_protocol.F_WINDOW_UPDATE, 0)}
+
+
+def _grpc_conn(ch: Channel):
+    sock = Socket.address(ch._single_sid)
+    check(sock is not None and getattr(sock, "h2_conn", None) is not None,
+          "15: the gRPC channel has no h2 connection")
+    return sock.h2_conn
+
+
+def _peer_h2(ctl) -> dict:
+    """The frames the peer's h2 connections read, summed."""
+    conns = peer_control(ctl, "state")["h2"]
+    return {k: sum(c[k] for c in conns)
+            for k in ("data_in", "window_updates_in")}
+
+
+def _h2_at_rest(ch: Channel, ctl, what: str):
+    """No stream open or DATA queued on either side; every send window is
+    whole again (the peer's once the last WINDOW_UPDATEs are read)."""
+    mine = h2_state(_grpc_conn(ch))
+    check(mine["streams"] == 0 and mine["pending"] == 0
+          and mine["send_window"] == h2_protocol.OUR_WINDOW,
+          f"{what}: the client's h2 connection is not at rest: {mine}")
+
+    def peer_rest():
+        conns = peer_control(ctl, "state")["h2"]
+        return conns and all(
+            c["streams"] == 0 and c["pending"] == 0
+            and c["send_window"] == h2_protocol.OUR_WINDOW for c in conns)
+
+    _wait(peer_rest, 10, f"{what}: the peer's h2 connections at rest")
+
+
+def _std_and_status(port: int, std: Channel, what: str) -> int:
+    """A tpu_std Echo and GET /status on the peer's port answer; returns
+    the calls made (1)."""
+    cntl, resp = std.call(ECHO, wire.EchoRequest(message="std"),
+                          wire.EchoResponse)
+    check(not cntl.failed() and resp.message == "std",
+          f"{what}: tpu_std on the port: {cntl.error_text}")
+    code, _, page, _ = http_get(port, "/status")
+    check(code == 200 and b"EchoService.Echo" in page,
+          f"{what}: GET /status on the port answered {code}")
+    return 1
+
+
+def grpc_calls(port: int, gch: Channel, std: Channel, ctl, tag: str) -> dict:
+    """15a: sequential calls, 16 at once on one connection, an unknown
+    method, a deadline; tpu_std and /status between them."""
+    times = []
+    for i in range(SEQ_15):
+        t0 = time.perf_counter()
+        cntl, resp = gch.call(ECHO, wire.EchoRequest(message=f"s{i}"),
+                              wire.EchoResponse)
+        times.append(time.perf_counter() - t0)
+        check(not cntl.failed() and resp.message == f"s{i}",
+              f"15a call {i}: {cntl.error_text}")
+    std_calls = _std_and_status(port, std, "15a")
+    conn = _grpc_conn(gch)
+    first = conn.next_stream_id
+    got = {}
+
+    def one(i):
+        cntl, resp = gch.call(ECHO, wire.EchoRequest(message=f"c{i}"),
+                              wire.EchoResponse)
+        got[i] = (cntl.error_code, resp.message)
+
+    _run_threads([lambda i=i: one(i) for i in range(CONC_15)], "15a", 60)
+    check(got == {i: (0, f"c{i}") for i in range(CONC_15)},
+          f"15a: concurrent replies {got}")
+    check(_grpc_conn(gch) is conn
+          and conn.next_stream_id == first + 2 * CONC_15,
+          "15a: the concurrent calls did not share one connection")
+    cntl, _ = gch.call("EchoService.Nope", wire.EchoRequest(message="x"),
+                       wire.EchoResponse)
+    check(cntl.error_code == errors.ENOMETHOD,
+          f"15a: an unknown method gave {cntl.error_code} {cntl.error_text}")
+    std_calls += _std_and_status(port, std, "15a")
+    sleep_us, timeout_ms = SLOW_15
+    t0 = time.perf_counter()
+    cntl, _ = gch.call(ECHO, wire.EchoRequest(message="slow",
+                                              sleep_us=sleep_us),
+                       wire.EchoResponse, timeout_ms=timeout_ms)
+    waited_ms = (time.perf_counter() - t0) * 1e3
+    check(cntl.error_code == errors.ERPCTIMEDOUT
+          and waited_ms < sleep_us / 1e3,
+          f"15a: the slow call gave {cntl.error_code} after {waited_ms} ms")
+    time.sleep(sleep_us / 1e6)  # the handler ends; its answer is dropped
+    seen = peer_control(ctl, "state")["echo_timeouts_ms"]
+    check(len(seen) == 1 and 0 < seen[0] <= timeout_ms,
+          f"15a: the peer saw grpc-timeout {seen}")
+    std_calls += _std_and_status(port, std, "15a")
+    out = {"seq_median_us": round(statistics.median(times) * 1e6, 1),
+           "seq_p99_us": round(_p99(times) * 1e3, 1),
+           "grpc_calls": SEQ_15 + CONC_15 + 1, "std_calls": std_calls,
+           "timeout_waited_ms": round(waited_ms, 3),
+           "grpc_timeout_seen_ms": seen[0]}
+    print(f"grpc/15a: {SEQ_15} sequential Echo calls over h2 at the peer: "
+          f"median {out['seq_median_us']} us, p99 {out['seq_p99_us']} us; "
+          f"{CONC_15} threads at once on one connection (streams "
+          f"{first}..{conn.next_stream_id - 2}) each got its own reply; an "
+          f"unknown method gave ENOMETHOD; a {sleep_us} us handler under a "
+          f"{timeout_ms} ms timeout gave ERPCTIMEDOUT after {waited_ms:.1f} "
+          f"ms, the peer read grpc-timeout {seen[0]} ms; tpu_std and GET "
+          f"/status answered on the same port between them {tag}")
+    return out
+
+
+def grpc_big(gch: Channel, ctl, gen, wire_MBps: float, tag: str) -> dict:
+    """15b: an 8 MiB ASCII message made on the card, echoed over h2 and
+    landed on the card, bit-equal; both connection windows crossed."""
+    dev = torch.device("cuda")
+    codes = torch.randint(32, 127, (BIG_15,), dtype=torch.uint8, device=dev,
+                          generator=gen)
+    text = codes.cpu().numpy().tobytes().decode("ascii")
+    body = len(wire.EchoRequest(message=text).SerializeToString()) + 5
+    frames = -(-body // h2_protocol.MAX_FRAME)
+    conn = _grpc_conn(gch)
+    mine0, peer0 = h2_state(conn), _peer_h2(ctl)
+    times = []
+    for r in range(ROUNDS_15):
+        t0 = time.perf_counter()
+        cntl, resp = gch.call(ECHO, wire.EchoRequest(message=text),
+                              wire.EchoResponse, timeout_ms=60000)
+        times.append(time.perf_counter() - t0)
+        check(not cntl.failed(), f"15b round {r}: {cntl.error_text}")
+        back = torch.frombuffer(bytearray(resp.message.encode("ascii")),
+                                dtype=torch.uint8).to(dev)
+        check(torch.equal(back, codes), f"15b round {r}: the echo differs")
+    mine1 = h2_state(conn)
+    want_peer = {"data_in": peer0["data_in"] + ROUNDS_15 * frames,
+                 "window_updates_in": peer0["window_updates_in"]
+                 + 2 * ROUNDS_15 * frames}
+    _wait(lambda: {k: _peer_h2(ctl)[k] for k in want_peer} == want_peer, 10,
+          f"15b: the peer read {ROUNDS_15 * frames} DATA frames and two "
+          f"WINDOW_UPDATEs for each of the client's")
+    moved = {"client_data_in": mine1["data_in"] - mine0["data_in"],
+             "client_window_updates_in":
+                 mine1["window_updates_in"] - mine0["window_updates_in"],
+             "peer_data_in": ROUNDS_15 * frames,
+             "peer_window_updates_in": 2 * ROUNDS_15 * frames}
+    check(moved["client_data_in"] == ROUNDS_15 * frames
+          and moved["client_window_updates_in"] == 2 * ROUNDS_15 * frames,
+          f"15b: frames read here {moved}, {frames} DATA frames a message")
+    _h2_at_rest(gch, ctl, "15b")
+    med = statistics.median(times)
+    out = {"ms_per_call": round(med * 1e3, 3),
+           "MBps": round(2 * BIG_15 / med / 1e6, 1),
+           "wire_lane_8MiB_MBps": round(wire_MBps, 1),
+           "frames_per_message": frames, **moved}
+    print(f"grpc/15b: an {BIG_15} B ASCII message made on the card, echoed "
+          f"over h2 x{ROUNDS_15} and landed on the card bit-equal: median "
+          f"{out['ms_per_call']} ms a call, {out['MBps']} MB/s both ways "
+          f"(phase 6's wire lane at 8 MiB: {out['wire_lane_8MiB_MBps']} "
+          f"MB/s); DATA frames read: {moved['client_data_in']} here, "
+          f"{moved['peer_data_in']} by the peer; WINDOW_UPDATE frames read: "
+          f"{moved['client_window_updates_in']} here, "
+          f"{moved['peer_window_updates_in']} by the peer; every window "
+          f"whole after {tag}")
+    return out
+
+
+class _Tap(LatencyRecorder):
+    """rpc_press's recorder, keeping each sample and its wall time (15f)."""
+
+    made = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.samples = []
+        _Tap.made.append(self)
+
+    def update(self, value):
+        self.samples.append((time.time(), value))
+        super().update(value)
+
+
+def grpc_press(port: int, ctl, devch, tag: str, std_press: dict) -> dict:
+    """15c: rpc_press --protocol h2:grpc at the peer's Echo, unthrottled
+    and at --qps 200; 15d: 16 shm pushes of the activations to the same
+    port during the unthrottled run, landed on its card bit-equal."""
+    dev = torch.device("cuda")
+    base = ["--server", f"127.0.0.1:{port}", "--method", ECHO, "--input",
+            '{"message": "chip"}', "--threads", "4", "--protocol", GRPC]
+    acts = [torch.randn((BATCH, SEQ, BIG.d_model), dtype=torch.bfloat16,
+                        device=dev) for _ in range(PUSHES_15)]
+    client = TensorClient(devch)
+    pushed = []
+
+    def pushes():
+        for i, a in enumerate(acts):
+            cntl, resp = client.push(f"g{i}", [a])
+            check(not cntl.failed() and resp.ok,
+                  f"15d push {i}: {cntl.error_text}")
+            pushed.append(i)
+
+    out, samples = {}, []
+    _Tap.made.clear()
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, bvar, "LatencyRecorder", LatencyRecorder)
+        bvar.LatencyRecorder = _Tap
+        for label, extra in (
+                ("unthrottled", ["--duration", str(PRESS_S_14)]),
+                (f"qps{PRESS_QPS_14}", ["--duration", str(PRESS_S_14),
+                                        "--qps", str(PRESS_QPS_14)])):
+            gc.collect()
+            side = (threading.Thread(target=lambda: _run_threads(
+                [pushes], "15d")) if label == "unthrottled" else None)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                if side is not None:
+                    side.start()
+                res = rpc_press.press(rpc_press.parse_args(base + extra))
+            if side is not None:
+                side.join(120)
+                check(not side.is_alive() and len(pushed) == PUSHES_15,
+                      f"15d: {len(pushed)} of {PUSHES_15} pushes done")
+            check(res["sent"] > 0 and res["errors"] == 0,
+                  f"15c {label}: {printed.getvalue()}")
+            taps = [t for t in _Tap.made if len(t.samples) == res["sent"]]
+            check(len(taps) == 1, f"15c {label}: no recorder of "
+                  f"{res['sent']} samples")
+            samples += taps[0].samples
+            _Tap.made.clear()
+            out[label] = {k: round(v, 3) for k, v in res.items()}
+    got = out[f"qps{PRESS_QPS_14}"]["qps"]
+    check(abs(got - PRESS_QPS_14) <= 0.1 * PRESS_QPS_14,
+          f"15c: --qps {PRESS_QPS_14} achieved {got} qps")
+    st = peer_control(ctl, "state")
+    for i, a in enumerate(acts):
+        check(st["contents"][f"g{i}"][0].startswith("cuda"),
+              f"15d: push {i} is not on the peer's card")
+        pcntl, got_t = client.pull(f"g{i}", device=dev)
+        check(not pcntl.failed() and torch.equal(u8(got_t[0]), u8(a)),
+              f"15d: push {i} pulled back differs ({pcntl.error_text})")
+    del got_t
+    print("grpc/15c: rpc_press --protocol h2:grpc at the peer's Echo, 4 "
+          "threads: " + "; ".join(
+              f"{k} {v['sent']} calls, {v['qps']} qps, errors {v['errors']}, "
+              f"avg {v['avg_us']} us, p99 {v['p99_us']} us"
+              for k, v in out.items())
+          + "; 14c over tpu_std: " + "; ".join(
+              f"{k} {v['qps']} qps, avg {v['avg_us']} us"
+              for k, v in std_press.items()) + f" {tag}")
+    print(f"grpc/15d: {PUSHES_15} pushes of the activations {list(acts[0].shape)}"
+          f" bfloat16 by shm to the same port during the unthrottled run, "
+          f"each on the peer's card and pulled back bit-equal {tag}")
+    return {"press": out, "samples": samples,
+            "grpc_calls": sum(v["sent"] for v in out.values())}
+
+
+def grpc_slo(samples, tag: str) -> dict:
+    """15f: 15c's latencies in log2 buckets, one second a rollup, through
+    one SloEngine latency objective with second-long windows."""
+    samples = sorted(samples)
+    obj = fleet.SloObjective("grpc_echo", kind="latency", lane="grpc",
+                             method=ECHO, **SLO_15)
+    engine = fleet.SloEngine([obj])
+    buckets = [0] * fleet.hist.NBUCKETS
+    t0, i, burns = samples[0][0], 0, []
+    edge = t0
+    while i < len(samples):
+        edge += 1.0
+        while i < len(samples) and samples[i][0] < edge:
+            buckets[fleet.hist.bucket_of(int(samples[i][1] * 1e3))] += 1
+            i += 1
+        engine.ingest({"methods": {f"grpc/{ECHO}": {
+            "count": i, "errors": 0, "buckets": list(buckets)}}}, now=edge)
+        st = engine.status()["grpc_echo"]
+        burns.append((st["fast_burn"], st["slow_burn"]))
+    st = engine.status()["grpc_echo"]
+    check(st["stream_total"] == len(samples),
+          f"15f: the engine ingested {st['stream_total']} of "
+          f"{len(samples)} calls")
+    out = {"ingested": st["stream_total"], "bad": st["bad_total"],
+           "burns": burns, "alert": st["alert"],
+           "fired_total": st["fired_total"],
+           "p99_us": round(fleet.hist.quantile(buckets, 0.99) / 1e3, 1)}
+    print(f"grpc/15f: {len(samples)} latencies of 15c in log2 buckets "
+          f"(p99 {out['p99_us']} us off the buckets), {len(burns)} rollups "
+          f"of one second into a latency objective ({SLO_15['ceiling_ms']} ms"
+          f" ceiling, budget {SLO_15['budget']}, windows "
+          f"{SLO_15['fast_window_s']} s / {SLO_15['slow_window_s']} s): "
+          f"(fast, slow) burn each second {burns}, {out['bad']} bad, alert "
+          f"{out['alert']}, fired {out['fired_total']} times {tag}")
+    return out
+
+
+def grpc_example(tag: str) -> dict:
+    """15e: the grpc_echo example as a user runs it."""
+    rc, lines, secs = run_main(grpc_echo.main, [])
+    check(rc == 0 and len(lines) == 2
+          and re.fullmatch(r"grpc reply: 'over grpc' latency=\d+us", lines[0])
+          and lines[1] == "tpu_std reply on the same port: 'over tpu_std'",
+          f"15e: grpc_echo exited {rc}: {lines}")
+    print(f"grpc/15e: brpc_tpu_torch.examples.grpc_echo exited 0 in {secs} s "
+          f"with the reference's two lines: {lines} {tag}")
+    return {"seconds": secs, "lines": lines}
+
+
+def phase_grpc(tag: str, gen, wire_MBps: float, std_press: dict) -> dict:
+    """15: gRPC over h2 at a --peer's one port, beside tpu_std, HTTP and
+    shm pushes."""
+    t_start = time.perf_counter()
+    proc = spawn_peer()
+    ctl = devch = gch = std = None
+    result = {}
+    try:
+        port, _ = await_peer(proc)
+        target = f"127.0.0.1:{port}"
+        ctl = Channel()
+        check(ctl.init(target) == 0, "control channel init")
+        peer_control(ctl, "to_card", on=True)
+        devch = _device_channel(target)
+        std = Channel()
+        check(std.init(target) == 0, "tpu_std channel init")
+        gch = Channel(ChannelOptions(protocol=GRPC, timeout_ms=5000))
+        check(gch.init(target) == 0, "gRPC channel init")
+        # a warm landing and pull, then the peer's card memory at rest
+        warm = torch.ones((1 << 20,), dtype=torch.float32,
+                          device=torch.device("cuda"))
+        client = TensorClient(devch)
+        check(not client.push("warm", [warm])[0].failed(), "15: warm push")
+        check(not client.pull("warm", device="cuda")[0].failed(),
+              "15: warm pull")
+        peer0 = peer_control(ctl, "reset")["memory_allocated"]
+        _, _, status0, _ = http_get(port, "/status")
+        _, _, vars0, _ = http_get(port, "/vars")
+        echo0 = _push_count(status0, ECHO)
+        result["calls"] = grpc_calls(port, gch, std, ctl, tag)
+        result["big"] = grpc_big(gch, ctl, gen, wire_MBps, tag)
+        pressed = grpc_press(port, ctl, devch, tag, std_press)
+        result["press"] = pressed["press"]
+        result["slo"] = grpc_slo(pressed["samples"], tag)
+        grpc_calls_made = (result["calls"]["grpc_calls"] + ROUNDS_15
+                           + pressed["grpc_calls"])
+        std_calls = result["calls"]["std_calls"]
+        _, _, status1, _ = http_get(port, "/status")
+        _, _, vars1, _ = http_get(port, "/vars")
+        echo_moved = _push_count(status1, ECHO) - echo0
+        push_moved = (_var_of(vars1, "TensorStore_Push_count")
+                      - _var_of(vars0, "TensorStore_Push_count"))
+        check(echo_moved == grpc_calls_made + std_calls,
+              f"15d: /status counts {echo_moved} Echo calls, made "
+              f"{grpc_calls_made} over gRPC and {std_calls} over tpu_std")
+        check(push_moved == PUSHES_15,
+              f"15d: /vars moved TensorStore_Push_count by {push_moved}")
+        _h2_at_rest(gch, ctl, "15d")
+        st = _reset_at_rest(ctl, devch, peer0, "15d")
+        result["counts"] = {"status_echo": echo_moved,
+                            "grpc_calls": grpc_calls_made,
+                            "std_calls": std_calls,
+                            "vars_push_count": push_moved}
+        print(f"grpc/15d: /status counts {echo_moved} Echo calls "
+              f"({grpc_calls_made} over gRPC, {std_calls} over tpu_std), "
+              f"/vars moved TensorStore_Push_count by {push_moved}; every h2 "
+              f"stream closed and window whole, the device endpoints, arena "
+              f"and pool at rest, the peer's card memory back at "
+              f"{st['memory_allocated']} B {tag}")
+        result["example"] = grpc_example(tag)
+        for ch in (gch, std, devch, ctl):
+            ch.close()
+        gch = std = devch = ctl = None
+        rc = stop_peer(proc)
+        proc = None
+        check(rc == 0, f"15: the peer exited with code {rc}")
+    finally:
+        for ch in (gch, std, devch, ctl):
+            if ch is not None:
+                ch.close()
+        if proc is not None:
+            stop_peer(proc)
+    result["seconds"] = round(time.perf_counter() - t_start, 1)
+    print(f"grpc/15: the peer exited 0; phase took {result['seconds']} s "
+          f"{tag}")
+    print("grpc " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3191,7 +3642,7 @@ def main() -> int:
 
     phase_forward(tokens, tag)
     phase_card_vs_cpu(tag)
-    phase_cross_process(tag, gen)
+    lanes = phase_cross_process(tag, gen)
     phase_train(tag)
     naming = phase_naming(tag, gen)
     phase_serve(tag, gen, naming)
@@ -3199,7 +3650,9 @@ def main() -> int:
     phase_trace(tokens, tag)
     phase_console(tag, gen)
     phase_tracing(tag, gen, naming)
-    phase_examples(tag, gen)
+    examples = phase_examples(tag, gen)
+    wire_8mib = 2 * BATCH * SEQ * BIG.d_model * 2 / lanes["wire/8MiB-act"]
+    phase_grpc(tag, gen, wire_8mib / 1e6, examples["press"])
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "

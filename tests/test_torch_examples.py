@@ -154,6 +154,7 @@ HOST_EXAMPLES = [
     ("partition_echo", []),
     ("selective_echo", []),
     ("dynamic_partition_echo", []),
+    ("grpc_echo", []),
 ]
 
 

@@ -257,7 +257,10 @@ CLIENT_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "bvar.reducer", "bthread.timer_thread", "bthread.id", "rpc.socket",
     "rpc.socket_map", "rpc.controller", "rpc.load_balancer",
     "rpc.naming_service", "rpc.circuit_breaker", "rpc.cluster_recover",
-    "rpc.channel", "rpc.combo_channels", "rpc.tensor_service")]
+    "rpc.channel", "rpc.combo_channels", "rpc.tensor_service",
+    "rpc.hpack", "rpc.h2_protocol", "butil.status", "butil.timeutil",
+    "butil.containers", "butil.pools", "bvar.collector",
+    "bvar.multi_dimension", "fleet", "fleet.hist", "fleet.slo")]
 # the examples' and the tools' twins, each a program a user starts
 PROGRAM_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "examples.echo", "examples.asynchronous_echo",
@@ -267,8 +270,8 @@ PROGRAM_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "examples.cascade_echo", "examples.partition_echo",
     "examples.selective_echo", "examples.dynamic_partition_echo",
     "examples.tensor_transport", "examples.device_performance",
-    "examples.parallel_echo", "tools.rpc_press", "tools.rpc_replay",
-    "tools.rpc_view", "tools.parallel_http", "tools.trackme_server",
+    "examples.parallel_echo", "examples.grpc_echo", "tools.rpc_press",
+    "tools.rpc_replay", "tools.rpc_view", "tools.parallel_http", "tools.trackme_server",
     "rpc.trackme")]
 
 
@@ -281,7 +284,7 @@ def test_port_imports_no_jax_protobuf_or_reference():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0].startswith("
-        "('jax', 'ml_dtypes')) or m.split('.')[0] == 'brpc_tpu'"
+        "('jax', 'ml_dtypes')) or m.split('.')[0] in ('brpc_tpu', 'grpc')"
         " or m.startswith('google.protobuf'))\n"
         f"missing = sorted(set({CLIENT_MODULES + PROGRAM_MODULES!r})"
         " - set(sys.modules))\n"

@@ -169,6 +169,15 @@ def test_rpc_press_over_http(servers, pkg):
     assert set(seen) == {"h"}
 
 
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_rpc_press_over_grpc(servers, pkg):
+    """--protocol h2:grpc: the same press over gRPC, at both servers."""
+    res, out, seen = _press(servers, pkg, "--input", '{"message": "g"}',
+                            "--duration", "0.1", "--protocol", "h2:grpc")
+    assert res["sent"] > 0 and res["errors"] == 0, out
+    assert set(seen) == {"g"}
+
+
 def _record(pkg, mod, msgs, dump_mod, flag_mod, target, directory):
     """Three echoes and one call to a missing method, recorded by
     ``pkg``'s rpc_dump into ``directory``; plus a file holding one record
