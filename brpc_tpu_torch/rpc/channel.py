@@ -32,16 +32,20 @@ endpoint that retains it. ``call_on_socket`` sends a call on one given
 connection; TensorClient sends that ACK with it.
 
 ``protocol`` is ``tpu_std`` (the default), ``http`` (requests as
-JSON, pipelined on a connection, rpc/http_protocol.py) or ``h2:grpc``
+JSON, pipelined on a connection, rpc/http_protocol.py), ``h2:grpc``
 (unary gRPC, a stream per call on one HTTP/2 connection,
-rpc/h2_protocol.py); any other is refused with EPROTONOTSUP. Channels of
-different protocols to one server do not share a connection. A
-protocol's ``on_pinned`` hook becomes each new connection's
-``on_connected``, so h2's preface is sent before the connection is read.
+rpc/h2_protocol.py), ``hulu_pbrpc``, ``sofa_pbrpc``, ``redis``,
+``memcache``, ``thrift`` or ``nshead``; any other is refused with
+EPROTONOTSUP. Channels of different protocols to one server do not
+share a connection. Each new connection is matched to the channel's
+protocol as it connects (and as it is revived), and the protocol's
+``on_pinned`` hook runs then, so h2's preface is sent before the
+connection is read.
 
 Left out of the reference's options: ``auth``, ``use_ssl`` and
-``ssl_verify`` (the port has no authenticator and no TLS), and the other
-protocols. Also left out: the native runtime.
+``ssl_verify`` (the port has no authenticator and no TLS), and the
+mongo, esp, rtmp and nshead-family protocols. Also left out: the native
+runtime.
 
 With the ``rpc_dump`` flag on, each call's serialized request is
 recorded before it is compressed or sent (rpc/rpc_dump.py).
@@ -221,11 +225,23 @@ class Channel:
         return self.options.connect_timeout_ms / 1000.0
 
     def _pin_protocol(self, sock: Socket):
-        """The protocol's client hook (h2 attaches its connection state and
-        sends its preface) runs when ``sock`` connects, before it joins the
-        dispatcher: a peer that speaks first finds the state there."""
-        if self._protocol.on_pinned is not None and sock.on_connected is None:
-            sock.on_connected = self._protocol.on_pinned
+        """A client connection speaks one protocol: when ``sock`` connects
+        (and again when it is revived, which forgets the match), before it
+        joins the dispatcher, it is matched to the channel's protocol, so
+        a response whose magic is weak (thrift's, nshead's) or absent
+        (redis's) is never taken by another parser, and the protocol's
+        client hook runs (h2 attaches its connection state and sends its
+        preface: a peer that speaks first finds the state there)."""
+        if sock.on_connected is not None:
+            return
+        protocol = self._protocol
+
+        def pin(s: Socket):
+            s.matched_protocol = protocol
+            if protocol.on_pinned is not None:
+                protocol.on_pinned(s)
+
+        sock.on_connected = pin
 
     def _connect_new_socket(self, ep: EndPoint, node_sid: int):
         factory = self._app_connect_factory()

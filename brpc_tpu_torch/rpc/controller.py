@@ -25,11 +25,14 @@ the winning response binds it to the connection that served it. On the
 server, ``_remote_stream_id`` is the client's stream id and
 ``_accepted_stream`` the stream the handler accepted.
 
-Each attempt is packed by the channel's protocol (``tpu_std`` or
-``http``); a protocol's ``on_packed`` hook runs under the socket's write
-lock as the request is queued (HTTP keeps its correlation ids in request
-order there). ``http_request`` and ``http_response`` are the HTTP
-messages of a call over HTTP, on either side.
+Each attempt is packed by the channel's protocol (``tpu_std``,
+``http``, ``h2:grpc`` or one of the legacy and key-value protocols); a
+protocol's ``on_packed`` hook runs under the socket's write lock as the
+request is queued (HTTP, redis, memcache and nshead keep their
+correlation ids in request order there). A protocol whose response
+carries no RpcMeta ends its attempt through ``lock_attempt`` and
+``_on_protocol_response``. ``http_request`` and ``http_response`` are
+the HTTP messages of a call over HTTP, on either side.
 
 Tracing and compression: ``_setup_call`` opens the call's rpcz client
 span (rpcz.py), whose ids the request's meta carries, and the RPC's end
@@ -297,6 +300,15 @@ class Controller:
                 self.set_failed(errors.EREQUEST, f"fail to parse response: {e}")
         self._end_rpc(locked=True)
 
+    def _on_protocol_response(self, sock, attempt_cid: int):
+        """The end of attempt ``attempt_cid``, answered on ``sock`` by a
+        protocol that filled the response (or failed the call) itself;
+        called with the id locked."""
+        self._current_sock = sock
+        self.remote_side = sock.remote_side
+        self._winner_cid = attempt_cid
+        self._end_rpc(locked=True)
+
     def _release_sends(self):
         """The winning send of a good RPC stays for the ACK in its
         response; a send whose response arrived with a failure is done; the
@@ -358,3 +370,16 @@ class Controller:
     def join(self, timeout: Optional[float] = None) -> bool:
         """Wait for the RPC's end."""
         return self._ended.wait(timeout)
+
+
+def lock_attempt(cid: int) -> Optional[Controller]:
+    """The controller of attempt ``cid`` with its id locked, or None when
+    the RPC has ended (a late answer to a timed-out or losing attempt)."""
+    try:
+        cntl = bthread_id.lock(cid)
+    except (KeyError, TimeoutError):
+        return None
+    if not isinstance(cntl, Controller):
+        Controller._unlock(cid)
+        return None
+    return cntl

@@ -18,7 +18,17 @@ protobuf does:
   as tag + zero length;
 * ``repeated int64`` is packed; elements of a repeated message are always
   written;
-* int32/int64 negatives are sign-extended to ten varint bytes.
+* int32/int64 (and enum) negatives are sign-extended to ten varint
+  bytes; ``sint64`` is zigzag-encoded; ``bytes`` stay ``bytes``.
+
+A class with ``PROTO2 = True`` follows proto2 instead (the legacy metas
+of ``rpc/proto/legacy_meta.py``): a scalar is written whenever it was
+assigned or parsed, default or not, ``HasField`` answers for scalars
+too, and ``SerializeToString`` raises ``EncodeError`` with protobuf's
+text while a field named in ``REQUIRED`` is unset. An enum field lists
+its values in the fourth slot of its ``FIELDS`` entry: assigning any
+other raises ``ValueError``, and parsing one drops it, as protobuf does
+with a closed enum.
 
 Decoding accepts packed and unpacked repeated scalars and skips unknown
 fields and fields of an unexpected wire type, as protobuf does (the
@@ -38,18 +48,31 @@ from typing import Dict, Tuple
 
 # field kinds
 STRING = "string"
+BYTES = "bytes"
 INT32 = "int32"
 INT64 = "int64"
+UINT64 = "uint64"
+SINT64 = "sint64"  # zigzag
+ENUM = "enum"  # an int32 on the wire
 BOOL = "bool"
 PACKED_INT64 = "repeated int64"
 MESSAGE = "message"
 REPEATED_MESSAGE = "repeated message"
 
-_DEFAULTS = {STRING: "", INT32: 0, INT64: 0, BOOL: False}
+_DEFAULTS = {STRING: "", BYTES: b"", INT32: 0, INT64: 0, UINT64: 0,
+             SINT64: 0, ENUM: 0, BOOL: False}
+_VARINT_KINDS = (INT32, INT64, UINT64, SINT64, ENUM, BOOL)
+_RANGES = {INT32: (-(1 << 31), 1 << 31), ENUM: (-(1 << 31), 1 << 31),
+           INT64: (-(1 << 63), 1 << 63), SINT64: (-(1 << 63), 1 << 63),
+           UINT64: (0, 1 << 64)}
 _MASK64 = (1 << 64) - 1
 
 
 class DecodeError(ValueError):
+    pass
+
+
+class EncodeError(ValueError):
     pass
 
 
@@ -103,6 +126,8 @@ class Message:
     FIELDS: Tuple = ()
     FULL_NAME = ""  # "<package>.<message>" of its .proto
     PROTO_FILE = ""
+    PROTO2 = False  # explicit presence of scalars
+    REQUIRED: Tuple = ()  # proto2 fields SerializeToString insists on
     _BY_NAME: Dict[str, Tuple] = {}
     _BY_NUMBER: Dict[int, Tuple] = {}
 
@@ -115,6 +140,7 @@ class Message:
         d = self.__dict__
         d["_present"] = False  # set once any field is assigned
         d["_parent"] = None
+        d["_has"] = set()  # proto2: the scalars assigned or parsed
         for _, name, kind, sub in self.FIELDS:
             if kind == PACKED_INT64:
                 d[name] = []
@@ -149,45 +175,67 @@ class Message:
             if not isinstance(value, str):
                 raise TypeError(f"{name}: expected str, got {type(value)}")
             value.encode()  # a lone surrogate fails here, as in protobuf
+        elif kind == BYTES:
+            if not isinstance(value, (bytes, bytearray)):
+                raise TypeError(f"{name}: expected bytes, "
+                                f"{type(value).__name__} found")
+            value = bytes(value)
         elif kind == BOOL:
             value = bool(value)
         else:
             value = int(value)
-            bits = 32 if kind == INT32 else 64
-            if not -(1 << (bits - 1)) <= value < (1 << (bits - 1)):
-                raise ValueError(f"{name}: {value} out of int{bits} range")
+            lo, hi = _RANGES[kind]
+            if not lo <= value < hi:
+                raise ValueError(f"{name}: {value} out of {kind} range")
+            if kind == ENUM and value not in f[3]:
+                raise ValueError(f"{name}: invalid enumerator {value}")
         self.__dict__[name] = value
+        if self.PROTO2:
+            self.__dict__["_has"].add(name)
         self._mark()
 
     def HasField(self, name: str) -> bool:
         f = self._BY_NAME.get(name)
-        if f is None or f[2] != MESSAGE:
-            raise ValueError(f"{name!r} is not a singular message field")
-        return self.__dict__[name]._present
+        if f is not None and f[2] == MESSAGE:
+            return self.__dict__[name]._present
+        if f is not None and self.PROTO2 and f[2] in _DEFAULTS:
+            return name in self._has
+        raise ValueError(f"{name!r} is not a singular message field")
 
     # -- encoding ----------------------------------------------------------
     def SerializeToString(self) -> bytes:
+        missing = [n for n in self.REQUIRED if n not in self._has]
+        if missing:
+            raise EncodeError(f"Message {self.FULL_NAME} is missing required "
+                              f"fields: {','.join(missing)}")
+        return self._serialize()
+
+    def _serialize(self) -> bytes:
         out = bytearray()
+        has = self._has if self.PROTO2 else None
         for number, name, kind, _ in self.FIELDS:
             v = self.__dict__[name]
-            if kind == STRING:
-                if v:
-                    b = v.encode()
-                    out += _varint(number << 3 | 2) + _varint(len(b)) + b
-            elif kind in (INT32, INT64, BOOL):
-                if v:
-                    out += _varint(number << 3) + _varint(int(v))
+            if kind in _DEFAULTS and not (name in has if has is not None
+                                          else v):
+                continue
+            if kind in (STRING, BYTES):
+                b = v.encode() if kind == STRING else v
+                out += _varint(number << 3 | 2) + _varint(len(b)) + b
+            elif kind == SINT64:
+                out += _varint(number << 3) + _varint((v << 1) ^ (v >> 63))
+            elif kind in _VARINT_KINDS:
+                out += _varint(number << 3) + _varint(int(v))
             elif kind == PACKED_INT64:
                 if v:
                     body = b"".join(_varint(int(x)) for x in v)
                     out += _varint(number << 3 | 2) + _varint(len(body)) + body
             elif kind == MESSAGE:
                 if v._present:
-                    body = v.SerializeToString()
+                    body = v._serialize()
                     out += _varint(number << 3 | 2) + _varint(len(body)) + body
             else:  # REPEATED_MESSAGE
                 for m in v:
-                    body = m.SerializeToString()
+                    body = m._serialize()
                     out += _varint(number << 3 | 2) + _varint(len(body)) + body
         return bytes(out)
 
@@ -211,7 +259,7 @@ class Message:
         if type(other) is not type(self):
             raise TypeError(f"cannot merge {type(other).__name__} into "
                             f"{type(self).__name__}")
-        self.ParseFromString(other.SerializeToString())
+        self.ParseFromString(other._serialize())
 
     def _merge(self, buf, i: int, end: int):
         d = self.__dict__
@@ -223,11 +271,22 @@ class Message:
             if wire == 0:
                 v, i = _read_varint(buf, i)
                 if kind == BOOL:
-                    d[f[1]] = bool(v)
+                    v = bool(v)
                 elif kind in (INT32, INT64):
-                    d[f[1]] = _signed(v, 32 if kind == INT32 else 64)
+                    v = _signed(v, 32 if kind == INT32 else 64)
+                elif kind == SINT64:
+                    v = (v >> 1) ^ -(v & 1)
+                elif kind == ENUM:
+                    v = _signed(v, 32)
+                    if v not in f[3]:
+                        continue  # a closed enum drops what it lacks
                 elif kind == PACKED_INT64:  # unpacked encoding
                     d[f[1]].append(_signed(v, 64))
+                    continue
+                elif kind != UINT64:
+                    continue
+                d[f[1]] = v
+                d["_has"].add(f[1])
             elif wire == 2:
                 ln, i = _read_varint(buf, i)
                 j = i + ln
@@ -238,6 +297,10 @@ class Message:
                         d[f[1]] = bytes(buf[i:j]).decode()
                     except UnicodeDecodeError as e:
                         raise DecodeError(str(e)) from None
+                    d["_has"].add(f[1])
+                elif kind == BYTES:
+                    d[f[1]] = bytes(buf[i:j])
+                    d["_has"].add(f[1])
                 elif kind == PACKED_INT64:
                     k = i
                     while k < j:
@@ -263,7 +326,7 @@ class Message:
     def __eq__(self, other):
         if type(other) is not type(self):
             return NotImplemented
-        return self.SerializeToString() == other.SerializeToString()
+        return self._serialize() == other._serialize()
 
     def __repr__(self):
         parts = []

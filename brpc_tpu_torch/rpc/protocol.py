@@ -8,18 +8,24 @@ priority order, and keeps the one that matched; ``process_inline`` marks a proto
 at once in the reading task, in wire order (the device handshake must be
 done before the first request of its connection runs).
 
-The port registers five protocols: ``tpu_std`` (rpc/tpu_std_protocol.py),
-``streaming`` (rpc/streaming_protocol.py), ``device_handshake``
-(rpc/tensor_service.py), ``http`` (rpc/http_protocol.py) and ``h2:grpc``
-(rpc/h2_protocol.py). HTTP comes after the three framings: they claim a
-short first read that could still become their magic ("T" of "TRPC")
-before HTTP sees it. h2 comes last: its preface ``PRI * ...`` is no
-HTTP/1 request line, and a first read of "P" that HTTP claims (it could
-begin ``POST``) goes to h2 once the next bytes show it cannot. A channel
-packs through ``tpu_std``, ``http`` or ``h2:grpc``, the protocols with a
-``pack_request``. ``on_pinned`` is the hook of a protocol whose client
-speaks first: it runs on a new connection before the connection joins
-the event dispatcher (h2 sends its preface there).
+The port registers eleven protocols: ``tpu_std``
+(rpc/tpu_std_protocol.py), ``streaming`` (rpc/streaming_protocol.py),
+``device_handshake`` (rpc/tensor_service.py), ``http``
+(rpc/http_protocol.py), ``h2:grpc`` (rpc/h2_protocol.py),
+``hulu_pbrpc``, ``sofa_pbrpc``, ``redis``, ``memcache``, ``thrift`` and
+``nshead`` (rpc/<name>_protocol.py). HTTP comes after the three
+framings: they claim a short first read that could still become their
+magic ("T" of "TRPC") before HTTP sees it. h2 follows HTTP: its preface
+``PRI * ...`` is no HTTP/1 request line, and a first read of "P" that
+HTTP claims (it could begin ``POST``) goes to h2 once the next bytes
+show it cannot; so does an "H" (``HEAD``) that turns into hulu's
+"HU". The magic-led protocols come next, then thrift, whose magic is in
+bytes 4-5, and nshead last: its magic sits at offset 24, so it claims a
+short first read that nothing else claimed. A channel packs through any
+of them but the stream frames and the handshake. ``on_pinned`` is the
+hook of a protocol whose client speaks first: it runs on a new
+connection before the connection joins the event dispatcher (h2 sends
+its preface there).
 """
 from __future__ import annotations
 
@@ -35,7 +41,13 @@ class ProtocolType(IntEnum):
     STREAMING = 2  # stream frames (streaming_rpc's role)
     HTTP = 3  # HTTP/1.1: pb over HTTP and the builtin console
     H2 = 4  # HTTP/2 with the gRPC unary mapping
+    REDIS = 5
+    MEMCACHE = 6  # the binary protocol
+    THRIFT = 7  # framed TBinary
     TENSOR = 9  # the device handshake of the tensor lane
+    NSHEAD = 10  # the 36-byte-header legacy framing
+    HULU = 11  # hulu_pbrpc
+    SOFA = 12  # sofa_pbrpc
 
 
 class ParseResult:
@@ -137,6 +149,12 @@ _PARSE_PRIORITY = {
     ProtocolType.TENSOR: 2,
     ProtocolType.HTTP: 3,
     ProtocolType.H2: 4,
+    ProtocolType.HULU: 5,
+    ProtocolType.SOFA: 6,
+    ProtocolType.REDIS: 7,
+    ProtocolType.MEMCACHE: 8,
+    ProtocolType.THRIFT: 9,  # weak magic: 0x8001 after a length
+    ProtocolType.NSHEAD: 11,  # weak magic: 0xfb709394 at offset 24
 }
 
 
@@ -159,7 +177,13 @@ def globally_initialize():
             return
         from brpc_tpu_torch.rpc import h2_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import http_protocol  # noqa: F401
+        from brpc_tpu_torch.rpc import hulu_protocol  # noqa: F401
+        from brpc_tpu_torch.rpc import memcache_protocol  # noqa: F401
+        from brpc_tpu_torch.rpc import nshead_protocol  # noqa: F401
+        from brpc_tpu_torch.rpc import redis_protocol  # noqa: F401
+        from brpc_tpu_torch.rpc import sofa_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import streaming_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import tensor_service  # noqa: F401
+        from brpc_tpu_torch.rpc import thrift_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import tpu_std_protocol  # noqa: F401
         _globally_initialized = True

@@ -23,7 +23,12 @@ card trace on ``/hotspots/tpu``, ...), ``POST /Service/Method`` calls a
 method with a JSON body, and ``restful_mappings``
 (``"/v1/echo => EchoService.Echo, ..."``) give a method a path of its own.
 
-Left out: authentication and TLS, the other protocols' services, the
+The port speaks hulu_pbrpc and sofa_pbrpc to every added service; it
+speaks redis, memcache, thrift and nshead through the service each one
+names in ``ServerOptions`` (``redis_service``, ``memcache_service``,
+``thrift_service``, ``nshead_service``), all on the one port.
+
+Left out: authentication and TLS, the mongo, esp and rtmp services, the
 native runtime and its workers. ``idle_timeout_s`` and
 ``server_info_name`` are read nowhere in the reference and are not
 ported.
@@ -67,6 +72,14 @@ class ServerOptions:
     restful_mappings: str = ""
     # SIGTERM becomes stop() + join() + exit(0)
     graceful_quit_on_sigterm: bool = False
+    # the port speaks redis (a RedisService, rpc/redis.py)
+    redis_service: Optional[object] = None
+    # the port speaks the memcache binary protocol (rpc/memcache.py)
+    memcache_service: Optional[object] = None
+    # the port speaks framed thrift (a ThriftService, rpc/thrift.py)
+    thrift_service: Optional[object] = None
+    # the port speaks nshead (an NsheadService, rpc/nshead_protocol.py)
+    nshead_service: Optional[object] = None
     # The identity the server half of the device handshake announces: the
     # card unless the caller asks for the CPU.
     device: DeviceLike = None
@@ -86,6 +99,10 @@ class Server:
         self._stopped_event = threading.Event()
         self.start_time = 0.0  # time.time() at the last start
         self.interceptor = self.options.interceptor
+        self.redis_service = self.options.redis_service
+        self.memcache_service = self.options.memcache_service
+        self.thrift_service = self.options.thrift_service
+        self.nshead_service = self.options.nshead_service
         self.session_pool = None
         if self.options.session_local_data_factory is not None:
             self.session_pool = SimpleDataPool(

@@ -8,10 +8,14 @@ Port of brpc_tpu/rpc/service.py: a Service subclass declares methods with
     def Push(self, controller, request, response, done):
         ...
         done()
+
+A service's methods in the order they are declared (a base class's
+first) stand in for a .proto service's method indexes, which hulu
+addresses methods by (``declared_methods``, ``declared_service``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Type
+from typing import Callable, Dict, List, NamedTuple, Optional, Type
 
 
 class MethodInfo(NamedTuple):
@@ -31,12 +35,36 @@ def rpc_method(request_class: Type, response_class: Type):
     return deco
 
 
+# service name -> the class declared last under it, in this process
+_declared: Dict[str, type] = {}
+
+
+def declared_service(name: str) -> Optional[type]:
+    return _declared.get(name)
+
+
 class Service:
     """Base class; service name defaults to the class name."""
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        _declared[cls.service_name()] = cls
 
     @classmethod
     def service_name(cls) -> str:
         return getattr(cls, "SERVICE_NAME", cls.__name__)
+
+    @classmethod
+    def declared_methods(cls) -> List[str]:
+        """The RPC method names in declaration order, a base class's
+        first; an override keeps its base's place."""
+        rpc = cls.methods()
+        names: List[str] = []
+        for klass in reversed(cls.__mro__):
+            for attr in vars(klass):
+                if attr in rpc and attr not in names:
+                    names.append(attr)
+        return names
 
     @classmethod
     def methods(cls) -> Dict[str, MethodInfo]:

@@ -30,8 +30,9 @@ registered with an event dispatcher; no thread belongs to it:
   which holds the connection's DeviceEndpoint. A connection that fails
   or closes releases every send its endpoint still retains: no ACK can
   reach it any more;
-* the ``on_connected`` seam: the hook of a protocol whose client speaks
-  first (h2's preface and SETTINGS), run after ``app_connect`` and before
+* the ``on_connected`` seam: a channel matches the connection to its
+  protocol there and runs the hook of a protocol whose client speaks
+  first (h2's preface and SETTINGS), after ``app_connect`` and before
   the socket joins the dispatcher, so a peer that answers at once finds
   the connection's protocol state attached;
 * protocol state: whatever a protocol attaches to a socket (HTTP's ids in

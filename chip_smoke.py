@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --peer`` is the second process of phases 6, 8,
-9, 10, 12, 13, 14 and 15; the script starts it itself.)
+9, 10, 12, 13, 14, 15 and 16; the script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -205,7 +205,31 @@ unavailable, or when the port is not beside it:
             go through one ``SloEngine`` latency objective with
             second-long windows: the burn rates and the alert state are
             printed, and the samples ingested must equal the calls made.
-            The peer exits 0.
+            The peer exits 0;
+16. legacy — one ``--peer`` whose one port serves TensorStore, the
+            console, SmokeEcho, h2, a ``DictRedisService``, a
+            ``MemcacheService``, a thrift Echo and an nshead mcpack adaptor
+            bound to SmokeEcho's Echo. (a) 200 sequential calls each over
+            tpu_std, hulu_pbrpc, sofa_pbrpc (Echo), redis and memcache
+            (GET), thrift (Echo) and nshead (Echo): median and p99 us
+            beside 15a's gRPC numbers. (b) An unknown method gives
+            ENOMETHOD over hulu and sofa and the reference's exception over
+            thrift, an unknown redis command an error reply; hulu and sofa
+            each echo 4 KiB with gzip, zlib and snappy. (c) An 8 MiB value
+            made on this card from the seeded generator goes through redis
+            SET+GET, memcache set+get and a thrift Echo, 3 calls each, and
+            lands on the card bit-equal every time: ms a call and MB/s
+            beside phase 6's wire lane at 8 MiB. (d) 16 threads make 64
+            redis and 64 memcache calls pipelined on one connection each;
+            every call gets its own reply. (e) ``rpc_press --protocol
+            hulu_pbrpc`` at the Echo with 4 threads, 3 s unthrottled,
+            beside 14c's tpu_std qps, while 16 shm pushes of the
+            activations land on the peer's card bit-equal; then /status
+            counts every Echo call made over tpu_std, hulu, sofa and
+            nshead, /vars TensorStore_Push_count moved by 16, the device
+            endpoints, arena and pool at rest. (f) The ``redis_kv``,
+            ``memcache_kv``, ``thrift_echo`` and ``legacy_pbrpc_echo``
+            examples exit 0 with the reference's lines. The peer exits 0.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -235,6 +259,7 @@ import zipfile
 import torch
 
 from brpc_tpu_torch import rpcz
+from brpc_tpu_torch import mcpack2pb
 from brpc_tpu_torch.builtin.profilers import cuda_trace
 from brpc_tpu_torch.butil import flags
 from brpc_tpu_torch.butil.recordio import RecordReader
@@ -249,12 +274,16 @@ from brpc_tpu_torch.examples import (
     echo,
     grpc_echo,
     http_server,
+    legacy_pbrpc_echo,
+    memcache_kv,
     multi_threaded_echo,
     partition_echo,
+    redis_kv,
     selective_echo,
     session_data,
     streaming_echo,
     tensor_transport,
+    thrift_echo,
 )
 from brpc_tpu_torch.parallel import run_ranks
 from brpc_tpu_torch.parallel.world import tensors_to_numpy
@@ -294,6 +323,15 @@ from brpc_tpu_torch.rpc.compress import (
 )
 from brpc_tpu_torch.rpc.concurrency_limiter import create_concurrency_limiter
 from brpc_tpu_torch.rpc.http_message import HttpRequest
+from brpc_tpu_torch.rpc.memcache import (
+    MemcacheRequest,
+    MemcacheResponse,
+    MemcacheService,
+)
+from brpc_tpu_torch.rpc.nshead_protocol import (
+    NsheadMessage,
+    NsheadPbServiceAdaptor,
+)
 from brpc_tpu_torch.rpc.progressive import (
     ProgressiveReader,
     attach_progressive_reader,
@@ -301,6 +339,11 @@ from brpc_tpu_torch.rpc.progressive import (
 )
 from brpc_tpu_torch.rpc import device_transport as dt
 from brpc_tpu_torch.rpc.proto import wire
+from brpc_tpu_torch.rpc.redis import (
+    DictRedisService,
+    RedisRequest,
+    RedisResponse,
+)
 from brpc_tpu_torch.rpc.service import Service, rpc_method
 from brpc_tpu_torch.rpc.socket import Socket
 from brpc_tpu_torch.rpc.tensor_service import (
@@ -308,6 +351,7 @@ from brpc_tpu_torch.rpc.tensor_service import (
     TensorStoreService,
     make_device_channel,
 )
+from brpc_tpu_torch.rpc.thrift import T_STRING, ThriftMessage, ThriftService
 from brpc_tpu_torch.tensor import ModelConfig, forward_local, init_params
 from brpc_tpu_torch.tools import (
     parallel_http,
@@ -803,6 +847,14 @@ class SmokeEcho(Service):
         done()
 
 
+def smoke_thrift() -> ThriftService:
+    """The peer's thrift Echo (phase 16): field 1 of the call back as
+    field 0 of the reply."""
+    svc = ThriftService()
+    svc.add_method("Echo", lambda body: {0: body.get(1, (T_STRING, b""))})
+    return svc
+
+
 class SmokeStore(TensorStoreService):
     """The peer's store. Phases 8 and 9 switch on ``to_card`` (a push
     lands on the peer's card, through the block pool, before it is
@@ -845,7 +897,11 @@ def peer_main() -> int:
     store = SmokeStore()
     streams = SmokeStreams()
     side = SmokePeer(store, streams)
-    srv = Server(ServerOptions(num_threads=PEER_THREADS))
+    srv = Server(ServerOptions(
+        num_threads=PEER_THREADS, redis_service=DictRedisService(),
+        memcache_service=MemcacheService(), thrift_service=smoke_thrift(),
+        nshead_service=NsheadPbServiceAdaptor.for_method(
+            "EchoService.Echo")))
     for svc in (store, side, streams, SmokeEcho()):
         check(srv.add_service(svc) == 0, "peer add_service")
     check(srv.start("127.0.0.1:0") == 0, "peer server start")
@@ -3621,6 +3677,361 @@ def phase_grpc(tag: str, gen, wire_MBps: float, std_press: dict) -> dict:
     return result
 
 
+# -- phase 16: the pb-rpc family and the key-value protocols on the port ------
+
+KV = ("redis", "memcache")
+LEGACY = ("hulu_pbrpc", "sofa_pbrpc") + KV + ("thrift", "nshead")
+SEQ_16 = 200  # 16a: sequential calls a protocol
+MSG_16 = 4096  # 16b: the compressed echoes
+BIG_16 = 8 << 20  # 16c: a value made on the card
+ROUNDS_16 = 3
+CONC_16 = (16, 64)  # 16d: threads, calls on one connection
+PUSHES_16 = 16  # 16e: activations pushed by shm during the press
+THRIFT_NOPE = "thrift exception: \"unknown thrift method 'Nope'\""
+
+
+def legacy_channel(target: str, protocol: str) -> Channel:
+    ch = Channel(ChannelOptions(protocol=protocol, timeout_ms=60000))
+    check(ch.init(target) == 0, f"16: {protocol} channel init")
+    return ch
+
+
+def legacy_call(ch: Channel, protocol: str, key: str, value: bytes = None,
+                **cntl_kw):
+    """One call of ``protocol``: (controller, the bytes answered). The Echo
+    over tpu_std, hulu, sofa and nshead (mcpack bodies) answers ``key``;
+    thrift's Echo answers ``value``, or ``key``; redis and memcache GET
+    ``key``, after a SET of ``value`` in the same call when one is
+    given."""
+    cntl = Controller()
+    cntl.timeout_ms = 60000
+    for k, v in cntl_kw.items():
+        setattr(cntl, k, v)
+    if protocol in ("tpu_std", "hulu_pbrpc", "sofa_pbrpc"):
+        resp = wire.EchoResponse()
+        ch.call_method(ECHO, cntl, wire.EchoRequest(message=key), resp)
+        return cntl, resp.message.encode()
+    if protocol == "nshead":
+        resp = NsheadMessage()
+        ch.call_method("nshead", cntl, NsheadMessage(mcpack2pb.pb_to_mcpack(
+            wire.EchoRequest(message=key))), resp)
+        if cntl.failed():
+            return cntl, None
+        return cntl, mcpack2pb.mcpack_to_pb(
+            resp.body, wire.EchoResponse).message.encode()
+    if protocol == "thrift":
+        resp = ThriftMessage()
+        data = value if value is not None else key.encode()
+        ch.call_method("thrift", cntl,
+                       ThriftMessage("Echo", {1: (T_STRING, data)}), resp)
+        return cntl, resp.body.get(0, (0, None))[1]
+    if protocol == "redis":
+        req, resp = RedisRequest(), RedisResponse()
+        if value is not None:
+            req.add_command("SET", key, value)
+        req.add_command("GET", key)
+        ch.call_method("redis", cntl, req, resp)
+        return cntl, (resp.reply(resp.reply_count - 1).value
+                      if resp.reply_count == req.command_count else None)
+    req, resp = MemcacheRequest(), MemcacheResponse()
+    if value is not None:
+        req.set(key, value)
+    ch.call_method("memcache", cntl, req.get(key), resp)
+    if value is not None and not resp.pop_set():
+        return cntl, None
+    ok, got = resp.pop_get()
+    return cntl, got if ok else None
+
+
+def legacy_sequential(chans: dict, grpc_calls: dict, tag: str) -> dict:
+    """16a: 200 sequential calls over each protocol, tpu_std's beside."""
+    for p in KV:
+        cntl, got = legacy_call(chans[p], p, "k16", b"v16")
+        check(not cntl.failed() and got == b"v16",
+              f"16a: {p} SET/GET: {cntl.error_text} {got!r}")
+    out = {}
+    for p, ch in chans.items():
+        times = []
+        for i in range(SEQ_16):
+            key = "k16" if p in KV else f"s{i}"
+            t0 = time.perf_counter()
+            cntl, got = legacy_call(ch, p, key)
+            times.append(time.perf_counter() - t0)
+            want = b"v16" if p in KV else key.encode()
+            check(not cntl.failed() and got == want,
+                  f"16a: {p} call {i}: {cntl.error_text} {got!r}")
+        out[p] = {"median_us": round(statistics.median(times) * 1e6, 1),
+                  "p99_us": round(_p99(times) * 1e3, 1)}
+    print(f"legacy/16a: {SEQ_16} sequential calls each at the peer's one "
+          f"port, median / p99 us: " + "; ".join(
+              f"{p} {v['median_us']} / {v['p99_us']}" for p, v in out.items())
+          + f"; 15a over gRPC in this run: {grpc_calls['seq_median_us']} / "
+          f"{grpc_calls['seq_p99_us']} {tag}")
+    return out
+
+
+def legacy_errors(chans: dict, gen, tag: str) -> dict:
+    """16b: an unknown method over hulu and sofa (ENOMETHOD) and thrift
+    (the reference's exception), an unknown redis command (an error
+    reply); hulu and sofa echo 4 KiB with each codec."""
+    for p in ("hulu_pbrpc", "sofa_pbrpc"):
+        cntl = Controller()
+        cntl.timeout_ms = 60000
+        chans[p].call_method("EchoService.Nope", cntl,
+                             wire.EchoRequest(message="x"),
+                             wire.EchoResponse())
+        check(cntl.error_code == errors.ENOMETHOD,
+              f"16b: {p} unknown method gave {cntl.error_code} "
+              f"{cntl.error_text}")
+    cntl = Controller()
+    cntl.timeout_ms = 60000
+    chans["thrift"].call_method("thrift", cntl, ThriftMessage("Nope", {}),
+                                ThriftMessage())
+    check((cntl.error_code, cntl.error_text) == (errors.EREQUEST,
+                                                 THRIFT_NOPE),
+          f"16b: thrift unknown method gave {cntl.error_code} "
+          f"{cntl.error_text}")
+    req, resp, cntl = RedisRequest(), RedisResponse(), Controller()
+    cntl.timeout_ms = 60000
+    req.add_command("NOPE", "x")
+    chans["redis"].call_method("redis", cntl, req, resp)
+    check(cntl.error_code == errors.EREQUEST and resp.reply_count == 1
+          and resp.reply(0).is_error()
+          and resp.reply(0).value == "ERR unknown command 'nope'",
+          f"16b: redis NOPE gave {cntl.error_code} {cntl.error_text}")
+    text = torch.randint(32, 127, (MSG_16,), dtype=torch.uint8,
+                         device=torch.device("cuda"), generator=gen
+                         ).cpu().numpy().tobytes().decode("ascii")
+    echoes = 0
+    for p in ("hulu_pbrpc", "sofa_pbrpc"):
+        for ctype in (COMPRESS_GZIP, COMPRESS_ZLIB, COMPRESS_SNAPPY):
+            cntl, got = legacy_call(chans[p], p, text, compress_type=ctype)
+            check(not cntl.failed() and got == text.encode(),
+                  f"16b: {p} compress {ctype}: {cntl.error_text}")
+            echoes += 1
+    print(f"legacy/16b: an unknown method gave ENOMETHOD over hulu and sofa "
+          f"and {THRIFT_NOPE!r} over thrift; redis NOPE gave the error reply "
+          f"\"ERR unknown command 'nope'\"; hulu and sofa each echoed {MSG_16}"
+          f" B with gzip, zlib and snappy {tag}")
+    return {"echo_calls": echoes}
+
+
+def legacy_big(chans: dict, gen, wire_MBps: float, tag: str) -> dict:
+    """16c: an 8 MiB value made on the card, through redis SET+GET,
+    memcache set+get and a thrift Echo, each landed on the card again."""
+    dev = torch.device("cuda")
+    value_t = torch.randint(0, 256, (BIG_16,), dtype=torch.uint8,
+                            device=dev, generator=gen)
+    value = value_t.cpu().numpy().tobytes()
+    out = {}
+    for p in ("redis", "memcache", "thrift"):
+        times = []
+        for r in range(ROUNDS_16):
+            t0 = time.perf_counter()
+            cntl, got = legacy_call(chans[p], p, f"big{r}", value)
+            times.append(time.perf_counter() - t0)
+            check(not cntl.failed() and got is not None,
+                  f"16c: {p} round {r}: {cntl.error_text}")
+            back = torch.frombuffer(bytearray(got), dtype=torch.uint8).to(dev)
+            check(torch.equal(back, value_t),
+                  f"16c: {p} round {r}: the value landed differs")
+        med = statistics.median(times)
+        out[p] = {"ms_per_call": round(med * 1e3, 3),
+                  "MBps": round(2 * BIG_16 / med / 1e6, 1)}
+    out["wire_lane_8MiB_MBps"] = round(wire_MBps, 1)
+    print(f"legacy/16c: an {BIG_16} B value made on the card, {ROUNDS_16} "
+          f"calls each (8 MiB each way), landed on the card bit-equal: "
+          + "; ".join(f"{p} {out[p]['ms_per_call']} ms a call, "
+                      f"{out[p]['MBps']} MB/s" for p in ("redis", "memcache",
+                                                          "thrift"))
+          + f" (phase 6's wire lane at 8 MiB: {out['wire_lane_8MiB_MBps']} "
+          f"MB/s) {tag}")
+    return out
+
+
+def legacy_pipelined(target: str, tag: str) -> dict:
+    """16d: 16 threads share one redis and one memcache connection, 64
+    calls each way; every call gets its own reply."""
+    threads, calls = CONC_16
+    out = {}
+    for p in KV:
+        ch = legacy_channel(target, p)
+        got, socks = {}, set()
+
+        def one(t, p=p, ch=ch, got=got, socks=socks):
+            for j in range(calls // threads):
+                key = f"c{t}-{j}"
+                cntl, v = legacy_call(ch, p, key, key[::-1].encode())
+                got[key] = (cntl.error_code, v)
+                socks.add(cntl._current_sock.socket_id)
+
+        _run_threads([lambda t=t: one(t) for t in range(threads)], "16d", 60)
+        ch.close()
+        check(len(got) == calls and all(
+            v == (0, k[::-1].encode()) for k, v in got.items()),
+              f"16d: {p} replies {sorted(got.items())[:4]}")
+        check(len(socks) == 1, f"16d: {p}'s calls used {len(socks)} "
+              f"connections")
+        out[p] = calls
+    print(f"legacy/16d: {threads} threads, {calls} redis and {calls} memcache"
+          f" calls pipelined on one connection each, every call got its own "
+          f"reply {tag}")
+    return out
+
+
+def legacy_press(port: int, ctl, devch, gen, tag: str,
+                 std_press: dict) -> dict:
+    """16e: rpc_press --protocol hulu_pbrpc at the Echo, 3 s unthrottled,
+    with 16 shm pushes of the activations to the same port meanwhile."""
+    dev = torch.device("cuda")
+    argv = ["--server", f"127.0.0.1:{port}", "--method", ECHO, "--input",
+            '{"message": "chip"}', "--threads", "4", "--protocol",
+            "hulu_pbrpc", "--duration", str(PRESS_S_14)]
+    acts = [torch.randn((BATCH, SEQ, BIG.d_model), dtype=torch.bfloat16,
+                        device=dev, generator=gen) for _ in range(PUSHES_16)]
+    client = TensorClient(devch)
+    pushed = []
+
+    def pushes():
+        for i, a in enumerate(acts):
+            cntl, resp = client.push(f"l{i}", [a])
+            check(not cntl.failed() and resp.ok,
+                  f"16e push {i}: {cntl.error_text}")
+            pushed.append(i)
+
+    gc.collect()
+    side = threading.Thread(target=lambda: _run_threads([pushes], "16e"))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        side.start()
+        res = rpc_press.press(rpc_press.parse_args(argv))
+    side.join(120)
+    check(not side.is_alive() and len(pushed) == PUSHES_16,
+          f"16e: {len(pushed)} of {PUSHES_16} pushes done")
+    check(res["sent"] > 0 and res["errors"] == 0,
+          f"16e: {printed.getvalue()}")
+    st = peer_control(ctl, "state")
+    for i, a in enumerate(acts):
+        check(st["contents"][f"l{i}"][0].startswith("cuda"),
+              f"16e: push {i} is not on the peer's card")
+        pcntl, got_t = client.pull(f"l{i}", device=dev)
+        check(not pcntl.failed() and torch.equal(u8(got_t[0]), u8(a)),
+              f"16e: push {i} pulled back differs ({pcntl.error_text})")
+    del got_t
+    out = {k: round(v, 3) for k, v in res.items()}
+    std = std_press["unthrottled"]
+    print(f"legacy/16e: rpc_press --protocol hulu_pbrpc at the peer's Echo, "
+          f"4 threads, {PRESS_S_14} s: {out['sent']} calls, {out['qps']} qps,"
+          f" errors {out['errors']}, avg {out['avg_us']} us, p99 "
+          f"{out['p99_us']} us; 14c over tpu_std: {std['qps']} qps, avg "
+          f"{std['avg_us']} us; {PUSHES_16} pushes of the activations "
+          f"{list(acts[0].shape)} bfloat16 by shm to the same port meanwhile,"
+          f" each on the peer's card and pulled back bit-equal {tag}")
+    return out
+
+
+LEGACY_EXAMPLES = (
+    (redis_kv, ["SET -> RedisReply\\(status, 'OK'\\)",
+                "GET -> RedisReply\\(string, b'v5e-8'\\)",
+                "DEL -> RedisReply\\(integer, 1\\)",
+                "GET after DEL -> RedisReply\\(nil, None\\) \\(nil\\)"]),
+    (memcache_kv, ["get chip -> b'tpu-v5e'", "hits counter: 1 then 2"]),
+    (thrift_echo, ["thrift reply: b'thrift says: hello'"]),
+    (legacy_pbrpc_echo, [f"{p}: 'via {p}' \\(\\d+us\\)"
+                         for p in ("hulu_pbrpc", "sofa_pbrpc", "tpu_std")]),
+)
+
+
+def legacy_examples(tag: str) -> dict:
+    """16f: the four examples as a user runs them."""
+    out = {}
+    for mod, patterns in LEGACY_EXAMPLES:
+        name = mod.__name__.rsplit(".", 1)[1]
+        rc, lines, secs = run_main(mod.main, [])
+        check(rc == 0 and len(lines) == len(patterns) and all(
+            re.fullmatch(pat, line) for pat, line in zip(patterns, lines)),
+              f"16f: {name} exited {rc}: {lines}")
+        out[name] = {"seconds": secs, "lines": lines}
+    print("legacy/16f: " + "; ".join(
+        f"{n} exited 0 in {v['seconds']} s with the reference's "
+        f"{len(v['lines'])} lines" for n, v in out.items()) + f" {tag}")
+    return out
+
+
+def phase_legacy(tag: str, gen, wire_MBps: float, grpc: dict,
+                 std_press: dict) -> dict:
+    """16: hulu, sofa, redis, memcache, thrift and nshead at a --peer's one
+    port, beside tpu_std, the console and shm pushes."""
+    t_start = time.perf_counter()
+    proc = spawn_peer()
+    ctl = devch = None
+    chans = {}
+    result = {}
+    try:
+        port, _ = await_peer(proc)
+        target = f"127.0.0.1:{port}"
+        ctl = Channel()
+        check(ctl.init(target) == 0, "control channel init")
+        peer_control(ctl, "to_card", on=True)
+        devch = _device_channel(target)
+        warm = torch.ones((1 << 20,), dtype=torch.float32,
+                          device=torch.device("cuda"))
+        client = TensorClient(devch)
+        check(not client.push("warm", [warm])[0].failed(), "16: warm push")
+        check(not client.pull("warm", device="cuda")[0].failed(),
+              "16: warm pull")
+        peer0 = peer_control(ctl, "reset")["memory_allocated"]
+        _, _, status0, _ = http_get(port, "/status")
+        _, _, vars0, _ = http_get(port, "/vars")
+        echo0 = _push_count(status0, ECHO)
+        chans = {p: legacy_channel(target, p) for p in ("tpu_std",) + LEGACY}
+        result["sequential"] = legacy_sequential(chans, grpc["calls"], tag)
+        result["errors"] = legacy_errors(chans, gen, tag)
+        result["big"] = legacy_big(chans, gen, wire_MBps, tag)
+        result["pipelined"] = legacy_pipelined(target, tag)
+        result["press"] = legacy_press(port, ctl, devch, gen, tag, std_press)
+        echo_calls = {p: SEQ_16 for p in ("tpu_std", "hulu_pbrpc",
+                                          "sofa_pbrpc", "nshead")}
+        echo_calls["compressed"] = result["errors"]["echo_calls"]
+        echo_calls["press_hulu"] = int(result["press"]["sent"])
+        _, _, status1, _ = http_get(port, "/status")
+        _, _, vars1, _ = http_get(port, "/vars")
+        echo_moved = _push_count(status1, ECHO) - echo0
+        push_moved = (_var_of(vars1, "TensorStore_Push_count")
+                      - _var_of(vars0, "TensorStore_Push_count"))
+        check(echo_moved == sum(echo_calls.values()),
+              f"16e: /status counts {echo_moved} Echo calls, made "
+              f"{echo_calls}")
+        check(push_moved == PUSHES_16,
+              f"16e: /vars moved TensorStore_Push_count by {push_moved}")
+        st = _reset_at_rest(ctl, devch, peer0, "16e")
+        result["counts"] = {"status_echo": echo_moved, "made": echo_calls,
+                            "vars_push_count": push_moved}
+        print(f"legacy/16e: /status counts {echo_moved} Echo calls, each one "
+              f"made ({echo_calls}), /vars moved TensorStore_Push_count by "
+              f"{push_moved}; the device endpoints, arena and pool at rest, "
+              f"the peer's card memory back at {st['memory_allocated']} B "
+              f"{tag}")
+        result["examples"] = legacy_examples(tag)
+        for ch in (*chans.values(), devch, ctl):
+            ch.close()
+        chans, devch, ctl = {}, None, None
+        rc = stop_peer(proc)
+        proc = None
+        check(rc == 0, f"16: the peer exited with code {rc}")
+    finally:
+        for ch in (*chans.values(), devch, ctl):
+            if ch is not None:
+                ch.close()
+        if proc is not None:
+            stop_peer(proc)
+    result["seconds"] = round(time.perf_counter() - t_start, 1)
+    print(f"legacy/16: the peer exited 0; phase took {result['seconds']} s "
+          f"{tag}")
+    print("legacy " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3652,7 +4063,8 @@ def main() -> int:
     phase_tracing(tag, gen, naming)
     examples = phase_examples(tag, gen)
     wire_8mib = 2 * BATCH * SEQ * BIG.d_model * 2 / lanes["wire/8MiB-act"]
-    phase_grpc(tag, gen, wire_8mib / 1e6, examples["press"])
+    grpc = phase_grpc(tag, gen, wire_8mib / 1e6, examples["press"])
+    phase_legacy(tag, gen, wire_8mib / 1e6, grpc, examples["press"])
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "

@@ -250,9 +250,11 @@ def test_channel_init_rejects_garbage():
         assert ref_rpc.Channel().init(url, lb) == ref_errors.EINVAL
         assert rpc.Channel().init(url, lb) == errors.EINVAL
     assert rpc.Channel().init("1.2.3.4") == errors.EINVAL
-    # tpu_std and http are the port's client protocols; the rest refused
-    assert (rpc.Channel(rpc.ChannelOptions(protocol="redis")).init(
-        "1.2.3.4:80") == errors.EPROTONOTSUP)
+    # a protocol the port does not speak (yet) is refused; the stream
+    # frames and the device handshake pack no request
+    for protocol in ("mongo", "nova_pbrpc", "streaming"):
+        assert (rpc.Channel(rpc.ChannelOptions(protocol=protocol)).init(
+            "1.2.3.4:80") == errors.EPROTONOTSUP)
 
 
 # -- circuit breaker and cluster recover twins --------------------------------

@@ -260,7 +260,11 @@ CLIENT_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "rpc.channel", "rpc.combo_channels", "rpc.tensor_service",
     "rpc.hpack", "rpc.h2_protocol", "butil.status", "butil.timeutil",
     "butil.containers", "butil.pools", "bvar.collector",
-    "bvar.multi_dimension", "fleet", "fleet.hist", "fleet.slo")]
+    "bvar.multi_dimension", "fleet", "fleet.hist", "fleet.slo",
+    "rpc.proto.legacy_meta", "rpc.pb_dispatch", "rpc.hulu_protocol",
+    "rpc.sofa_protocol", "rpc.redis", "rpc.redis_protocol", "rpc.memcache",
+    "rpc.memcache_protocol", "rpc.thrift", "rpc.thrift_protocol",
+    "mcpack2pb", "rpc.nshead_protocol")]
 # the examples' and the tools' twins, each a program a user starts
 PROGRAM_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "examples.echo", "examples.asynchronous_echo",
@@ -270,7 +274,9 @@ PROGRAM_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "examples.cascade_echo", "examples.partition_echo",
     "examples.selective_echo", "examples.dynamic_partition_echo",
     "examples.tensor_transport", "examples.device_performance",
-    "examples.parallel_echo", "examples.grpc_echo", "tools.rpc_press",
+    "examples.parallel_echo", "examples.grpc_echo", "examples.redis_kv",
+    "examples.memcache_kv", "examples.thrift_echo",
+    "examples.legacy_pbrpc_echo", "tools.rpc_press",
     "tools.rpc_replay", "tools.rpc_view", "tools.parallel_http", "tools.trackme_server",
     "rpc.trackme")]
 
