@@ -5,16 +5,23 @@ Blocks are host bytes, or DEVICE blocks that hold a ``torch.Tensor``
 (the counterpart of ``Block.device_block``): a tensor rides the chain
 untouched and is copied to the host once, when a wire boundary reads its
 bytes. A socket reads into one (``append_from_socket``) and writes from
-one (``cut_into_socket``) without blocking. Left out: the thread-local
-block cache, user blocks with deleters and the read-arena seam.
+one (``cut_into_socket``) without blocking, through TLS as well (an
+``ssl.SSLSocket``: a view at a time, and the TLS layer's want-read and
+want-write are would-block). Left out: the thread-local block cache,
+user blocks with deleters and the read-arena seam.
 """
 from __future__ import annotations
 
+import errno
+import ssl
 from collections import deque
 from itertools import islice
 from typing import Iterable, Union
 
 import torch
+
+
+TLS_READ = 32768  # a TLS record holds at most 16 KiB of data
 
 
 class Block:
@@ -161,18 +168,50 @@ class IOBuf:
         return bytes(self.copy_to_bytes())
 
     def append_from_socket(self, fd, max_bytes: int) -> int:
-        """One ``recv`` of at most max_bytes appended; 0 at EOF. A socket
-        with nothing to read raises BlockingIOError."""
+        """Append at most max_bytes read from ``fd``; 0 at EOF. A socket
+        with nothing to read raises BlockingIOError. A plain socket takes
+        one ``recv``; a TLS socket is read record by record until
+        max_bytes or until the TLS layer wants more from the peer, so no
+        decrypted byte is left inside it without a readable edge to
+        come."""
+        if isinstance(fd, ssl.SSLSocket):
+            return self._append_from_tls(fd, max_bytes)
         data = fd.recv(max_bytes)
         if data:
             self._append_ref(BlockRef(Block(data), 0, len(data)))
         return len(data)
 
+    def _append_from_tls(self, fd, max_bytes: int) -> int:
+        got = 0
+        while got < max_bytes:
+            try:
+                data = fd.recv(min(TLS_READ, max_bytes - got))
+            except (ssl.SSLWantReadError, ssl.SSLWantWriteError):
+                if got == 0:
+                    raise BlockingIOError(errno.EAGAIN, "tls wants more")
+                break
+            if not data:
+                break  # EOF: the bytes read so far first
+            self._append_ref(BlockRef(Block(data), 0, len(data)))
+            got += len(data)
+        return got
+
     def cut_into_socket(self, fd, max_views: int = 64) -> int:
-        """Send from the front with one ``sendmsg`` and drop what was sent;
-        returns the bytes sent. A full socket raises BlockingIOError."""
-        views = [r.view() for r in islice(self._refs, max_views)]
-        n = fd.sendmsg(views) if views else 0
+        """Send from the front and drop what was sent; returns the bytes
+        sent. A full socket raises BlockingIOError. A plain socket takes
+        one ``sendmsg`` of up to max_views blocks; a TLS socket, which
+        cannot gather, the front block alone (the same bytes again when
+        the TLS layer asked to be called back)."""
+        if isinstance(fd, ssl.SSLSocket):
+            if not self._refs:
+                return 0
+            try:
+                n = fd.send(self._refs[0].view())
+            except (ssl.SSLWantWriteError, ssl.SSLWantReadError):
+                raise BlockingIOError(errno.EAGAIN, "tls wants the socket")
+        else:
+            views = [r.view() for r in islice(self._refs, max_views)]
+            n = fd.sendmsg(views) if views else 0
         self.pop_front(n)
         return n
 

@@ -13,7 +13,8 @@ the CPU. ``tensor_transport`` and ``device_performance`` push tensors;
 ``parallel.run_ranks`` when there are two cards or more (``--ranks`` on
 the CPU). The other examples are host programs; ``grpc_echo`` calls one
 server over gRPC and over tpu_std on its one port, ``legacy_pbrpc_echo``
-over hulu_pbrpc, sofa_pbrpc and tpu_std, and ``redis_kv``,
+over hulu_pbrpc, sofa_pbrpc and tpu_std, ``redis_kv``,
 ``memcache_kv`` and ``thrift_echo`` call a server that speaks redis,
-memcache or thrift.
+memcache or thrift, and ``nshead_extension`` one whose nshead front end
+mcpack2pb_gen writes.
 """

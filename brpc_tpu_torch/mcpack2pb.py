@@ -22,9 +22,14 @@ import struct
 from typing import Dict, Tuple
 
 from brpc_tpu_torch.rpc.proto.wire import (
+    BOOL,
+    BYTES,
+    MAP,
     MESSAGE,
     PACKED_INT64,
     REPEATED_MESSAGE,
+    REPEATED_STRING,
+    STRING,
 )
 
 FIELD_OBJECT = 0x10
@@ -250,7 +255,7 @@ def mcpack_to_pb(data: bytes, message_class):
 def _pb_to_dict(message) -> dict:
     out = {}
     present = message._has if message.PROTO2 else None
-    for _, name, kind, _ in message.FIELDS:
+    for _, name, kind, sub in message.FIELDS:
         value = getattr(message, name)
         if kind == MESSAGE:
             if value._present:
@@ -258,16 +263,31 @@ def _pb_to_dict(message) -> dict:
         elif kind == REPEATED_MESSAGE:
             if value:
                 out[name] = [_pb_to_dict(v) for v in value]
-        elif kind == PACKED_INT64:
+        elif kind in (PACKED_INT64, REPEATED_STRING):
             if value:
                 out[name] = list(value)
+        elif kind == MAP:
+            if value:
+                out[name] = {str(k): (_pb_to_dict(v) if sub[1] == MESSAGE
+                                      else v) for k, v in value.items()}
         elif (name in present) if present is not None else value:
             out[name] = value
     return out
 
 
+def _map_from_dict(obj: dict, target, sub):
+    key_kind, value_kind, _ = sub
+    for k, v in obj.items():
+        key = k if key_kind in (STRING, BYTES) else (
+            k == "True" if key_kind == BOOL else int(k))
+        if value_kind == MESSAGE:
+            _dict_to_pb(v, target[key])
+        else:
+            target[key] = v
+
+
 def _dict_to_pb(obj: dict, msg):
-    for _, name, kind, _ in msg.FIELDS:
+    for _, name, kind, sub in msg.FIELDS:
         if name not in obj:
             continue
         value = obj[name]
@@ -275,8 +295,10 @@ def _dict_to_pb(obj: dict, msg):
             target = getattr(msg, name)
             for item in value or []:
                 _dict_to_pb(item, target.add())
-        elif kind == PACKED_INT64:
+        elif kind in (PACKED_INT64, REPEATED_STRING):
             getattr(msg, name).extend(value or [])
+        elif kind == MAP:
+            _map_from_dict(value or {}, getattr(msg, name), sub)
         elif kind == MESSAGE:
             _dict_to_pb(value, getattr(msg, name))
         else:

@@ -42,10 +42,16 @@ protocol as it connects (and as it is revived), and the protocol's
 ``on_pinned`` hook runs then, so h2's preface is sent before the
 connection is read.
 
-Left out of the reference's options: ``auth``, ``use_ssl`` and
-``ssl_verify`` (the port has no authenticator and no TLS), and the
-mongo, esp, rtmp and nshead-family protocols. Also left out: the native
-runtime.
+``auth`` (an rpc/authenticator.py ``Authenticator``) gives each request
+of tpu_std and hulu a credential, as in the reference; no other protocol
+carries one. With ``use_ssl`` every connection of the channel, a naming
+service's too, runs TLS (``ssl_verify`` checks the server's certificate
+against the system's trust store; off, any certificate will do), and the
+device handshake runs inside it; a failed handshake fails the attempt,
+never falling back to plaintext. Channels differing in either do not
+share a connection. The nshead family (``nova_pbrpc``,
+``public_pbrpc``, ``ubrpc``) and ``esp`` are client protocols here as
+in the reference. Left out: the rtmp client and the native runtime.
 
 With the ``rpc_dump`` flag on, each call's serialized request is
 recorded before it is compressed or sent (rpc/rpc_dump.py).
@@ -69,13 +75,13 @@ from brpc_tpu_torch.rpc.protocol import (
     list_server_protocols,
 )
 from brpc_tpu_torch.rpc.rpc_dump import maybe_dump_request
-from brpc_tpu_torch.rpc.socket import Socket
+from brpc_tpu_torch.rpc.socket import Socket, tls_context
 
 
 @dataclass
 class ChannelOptions:
-    """The reference's ChannelOptions and defaults, without auth and ssl,
-    plus the device the handshake announces."""
+    """The reference's ChannelOptions and defaults, plus the device the
+    handshake announces."""
 
     connect_timeout_ms: float = 200
     timeout_ms: float = 500
@@ -85,6 +91,9 @@ class ChannelOptions:
     connection_type: str = "single"  # single | pooled | short
     health_check_interval_s: float = -1
     enable_circuit_breaker: bool = False
+    auth: Optional[object] = None  # an Authenticator
+    use_ssl: bool = False
+    ssl_verify: bool = False  # check the server's certificate
     # use_rdma analog: connections run the device handshake
     use_device_transport: bool = False
     # the card unless the caller asks for the CPU
@@ -145,6 +154,9 @@ class Channel:
         self._mapped_key = None  # our reference in the SocketMap
         self._mapped_sid = None
         self._protocol = None
+        self._ssl_context = (tls_context(server_side=False,
+                                         verify=self.options.ssl_verify)
+                             if self.options.use_ssl else None)
 
     def close(self):
         """Stop the naming service (its sockets are recycled), drop the
@@ -248,7 +260,8 @@ class Channel:
         sid = Socket.create(
             remote_side=ep,
             on_edge_triggered_events=get_client_messenger().on_new_messages,
-            app_connect=factory() if factory is not None else None)
+            app_connect=factory() if factory is not None else None,
+            ssl_context=self._ssl_context)
         sock = Socket.address(sid)
         sock.node_sid = node_sid or sid
         self._pin_protocol(sock)
@@ -278,11 +291,13 @@ class Channel:
                 return self._connection_of_type(main_sock.remote_side, cntl,
                                                 sid)
             # a naming service's sockets dial on first use: the device
-            # handshake is attached before that
+            # handshake and TLS are attached before that
             factory = self._app_connect_factory()
             if (factory is not None and main_sock.app_connect is None
                     and main_sock.fd() is None):
                 main_sock.app_connect = factory()
+            if main_sock.ssl_context is None and main_sock.fd() is None:
+                main_sock.ssl_context = self._ssl_context
             self._pin_protocol(main_sock)
             if main_sock.ensure_connected(self._connect_timeout_s()) != 0:
                 return None, errors.EFAILEDSOCKET
@@ -325,6 +340,7 @@ class Channel:
                         return None, errors.EFAILEDSOCKET
                     return sock, 0
             key = make_key(ep, protocol=self.options.protocol,
+                           ssl=self.options.use_ssl, auth=self.options.auth,
                            app_connect_id=(
                                f"device:{self.options.device}"
                                if self.options.use_device_transport else ""))
@@ -332,7 +348,8 @@ class Channel:
             sid = smap.insert(
                 ep, key,
                 health_check_interval_s=self.options.health_check_interval_s,
-                app_connect_factory=self._app_connect_factory())
+                app_connect_factory=self._app_connect_factory(),
+                ssl_context=self._ssl_context)
             if self._mapped_key is not None:
                 smap.remove(self._mapped_key, expected_sid=self._mapped_sid)
             self._mapped_key, self._mapped_sid = key, sid
@@ -406,11 +423,13 @@ class Channel:
 
 
 class _OneSocket:
-    """The channel of a call pinned to one connection, over tpu_std."""
+    """The channel of a call pinned to one connection, over tpu_std, with
+    the options (the authenticator) of the channel that made it."""
 
-    def __init__(self, sock: Socket):
+    def __init__(self, sock: Socket, options: Optional[ChannelOptions]):
         self._sock = sock
         self._protocol = find_protocol_by_name("tpu_std")
+        self.options = options
 
     def _select_socket(self, cntl: Controller):
         if self._sock.failed():
@@ -422,12 +441,15 @@ class _OneSocket:
 
 
 def call_on_socket(sock: Socket, method_full_name: str, cntl: Controller,
-                   request, response, done: Optional[Callable] = None):
+                   request, response, done: Optional[Callable] = None,
+                   options: Optional[ChannelOptions] = None):
     """One attempt on ``sock`` itself: no balancing, no retry, no backup
-    request. Fails with EFAILEDSOCKET when the connection is gone."""
+    request. Fails with EFAILEDSOCKET when the connection is gone.
+    ``options`` are those of the channel the connection belongs to: its
+    ``auth`` gives the call its credential."""
     if cntl.timeout_ms is None:
         cntl.timeout_ms = ChannelOptions.timeout_ms
     cntl.max_retry = 0
     cntl.backup_request_ms = None
-    _start_call(_OneSocket(sock), method_full_name, cntl, request, response,
-                done)
+    _start_call(_OneSocket(sock, options), method_full_name, cntl, request,
+                response, done)

@@ -42,9 +42,10 @@ attempts of one RPC (retries, a backup request) share it. On the server,
 ``COMPRESS_*`` codes of rpc/compress.py) compresses the request's
 payload, and on the server the response's, never an attachment.
 ``close_connection()`` in a handler closes the connection after the
-response is sent. ``reset()`` makes a used controller new.
-
-Left out: authentication.
+response is sent. ``reset()`` makes a used controller new. On the
+server, ``auth_context`` is what the server's authenticator made of the
+request's credential (``client_credential`` and ``verify_credential``
+are the two halves tpu_std and hulu share).
 """
 from __future__ import annotations
 
@@ -133,6 +134,7 @@ class Controller:
         self.server_start_time = 0.0  # time.monotonic() at arrival
         self.close_connection_flag = False
         self.session_local_data = None  # lent by the server's pool
+        self.auth_context = None  # the verified credential's AuthContext
         self._server_socket = None
         # tensor lane: outbound tensors on the client; the inbound and
         # outbound RpcMeta on the server; the response's RpcMeta on the client
@@ -370,6 +372,40 @@ class Controller:
     def join(self, timeout: Optional[float] = None) -> bool:
         """Wait for the RPC's end."""
         return self._ended.wait(timeout)
+
+
+def client_credential(cntl: Controller) -> Optional[str]:
+    """The credential of the call's channel's authenticator, None without
+    one; raises when the authenticator refuses to make one (the attempt
+    then fails to pack)."""
+    channel = cntl._channel
+    auth = getattr(getattr(channel, "options", None), "auth", None)
+    if auth is None:
+        return None
+    cred = auth.generate_credential(cntl)
+    if cred is None:
+        raise ValueError("authenticator refused to generate credential")
+    return cred
+
+
+def verify_credential(server, cntl: Controller, credential, sock) -> bool:
+    """True when the server has no authenticator or it accepts
+    ``credential`` (its context goes to ``cntl.auth_context``); else the
+    controller is failed with EAUTH."""
+    auth = getattr(server, "auth", None)
+    if auth is None:
+        return True
+    if isinstance(credential, bytes):
+        credential = credential.decode("utf-8", "replace")
+    try:
+        ok, ctx = auth.verify_credential(credential, sock.remote_side)
+    except Exception:
+        ok, ctx = False, None
+    if not ok:
+        cntl.set_failed(errors.EAUTH, "authentication failed")
+        return False
+    cntl.auth_context = ctx
+    return True
 
 
 def lock_attempt(cid: int) -> Optional[Controller]:

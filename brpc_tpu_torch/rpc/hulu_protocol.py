@@ -22,8 +22,14 @@ The compression codes differ from the registry's: hulu numbers snappy
 sets ``cntl.compress_type``, as the reference's does.
 ``user_message_size`` splits the (compressed) message from an
 attachment that follows it in the payload.
-Left out: the authenticator's ``credential_data``, which comes with
-rpc/authenticator.py.
+
+A channel with ``auth`` sends its credential in ``credential_data`` (a
+proto2 ``bytes`` field: the credential's UTF-8), and a server with
+``auth`` verifies it before dispatch (EAUTH on failure), as tpu_std
+does. The reference sets that field to the credential's ``str``, which
+its protobuf refuses, so its client fails to pack, and its server hands
+the field's bytes to the authenticator, which takes a ``str``, so it
+refuses every credential (ROADMAP queue C #28).
 """
 from __future__ import annotations
 
@@ -31,7 +37,12 @@ import struct
 
 from brpc_tpu_torch.butil.iobuf import IOBuf
 from brpc_tpu_torch.rpc import compress, errors
-from brpc_tpu_torch.rpc.controller import Controller, lock_attempt
+from brpc_tpu_torch.rpc.controller import (
+    Controller,
+    client_credential,
+    lock_attempt,
+    verify_credential,
+)
 from brpc_tpu_torch.rpc.pb_dispatch import (
     dispatch_pb_request,
     serialize_request,
@@ -135,6 +146,9 @@ def pack_request(payload: bytes, cntl: Controller, correlation_id: int) -> IOBuf
     if cntl.trace_id:
         meta.trace_id = cntl.trace_id
         meta.span_id = cntl.span_id
+    cred = client_credential(cntl)
+    if cred is not None:
+        meta.credential_data = cred.encode()
     if cntl.compress_type:
         meta.compress_type = _TO_HULU.get(cntl.compress_type, _HULU_NONE)
     payload = compress.compress(payload, cntl.compress_type)
@@ -210,6 +224,9 @@ def process_request(msg: HuluMessage):
     cntl.trace_id = meta.trace_id
     ctype = _FROM_HULU.get(meta.compress_type, 0)
     payload = _split_attachment(meta, msg.payload, cntl.request_attachment)
+    if server is not None and not verify_credential(
+            server, cntl, meta.credential_data, sock):
+        return _send_response(sock, cid, cntl, None)
     method_name = meta.method_name
     if server is not None and not method_name:
         service = server.find_service(meta.service_name)

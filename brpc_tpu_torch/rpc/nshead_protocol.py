@@ -124,13 +124,21 @@ def on_packed(sock, cntl: Controller, correlation_id: int):
     q.append(correlation_id)
 
 
-def process_response(msg: NsheadInputMessage):
-    sock = msg.socket
+def next_attempt(sock):
+    """(attempt id, its controller locked) of the oldest call waiting on
+    ``sock``; the controller is None when no call waits or it has ended
+    (a reply that came too late). The protocols riding nshead
+    (rpc/legacy_nshead_family.py) share it."""
     q = getattr(sock, "_nshead_pipeline", None)
     if not q:
-        return
+        return 0, None
     cid = q.popleft()
-    cntl = lock_attempt(cid)
+    return cid, lock_attempt(cid)
+
+
+def process_response(msg: NsheadInputMessage):
+    sock = msg.socket
+    cid, cntl = next_attempt(sock)
     if cntl is None:
         return
     resp = cntl._response

@@ -6,7 +6,8 @@ brpc_tpu.policy``, proto2): ``HuluRpcRequestMeta``,
 enum. proto2 keeps explicit presence, so a field assigned its default is
 still written, and a hulu or sofa meta serializes to the bytes of
 ``legacy_meta_pb2``'s ``SerializeToString`` (``rpc/proto/wire.py``).
-The Public* messages of public_pbrpc come with the nshead family.
+The Public* messages (``legacy_meta.proto:63-106``) are public_pbrpc's
+envelope (rpc/legacy_nshead_family.py).
 """
 from __future__ import annotations
 
@@ -16,8 +17,12 @@ from brpc_tpu_torch.rpc.proto.wire import (
     ENUM,
     INT32,
     INT64,
+    MESSAGE,
+    REPEATED_MESSAGE,
+    SINT32,
     SINT64,
     STRING,
+    UINT32,
     UINT64,
     Message,
 )
@@ -81,6 +86,73 @@ class SofaRpcMeta(Message):
     )
 
 
-for _cls in (HuluRpcRequestMeta, HuluRpcResponseMeta, SofaRpcMeta):
+class PublicRequestHead(Message):
+    PROTO2 = True
+    FIELDS = (
+        (1, "from_host", STRING, None),
+        (2, "content_type", UINT32, None),
+        (3, "connection", BOOL, None),
+        (4, "charset", STRING, None),
+        (5, "accept_charset", STRING, None),
+        (6, "create_time", STRING, None),
+        (7, "log_id", UINT64, None),
+        (8, "compress_type", UINT32, None),
+    )
+
+
+class PublicRequestBody(Message):
+    PROTO2 = True
+    REQUIRED = ("service", "method_id", "id")
+    FIELDS = (
+        (1, "version", STRING, None),
+        (2, "charset", STRING, None),
+        (3, "service", STRING, None),
+        (4, "method_id", UINT32, None),
+        (5, "id", UINT64, None),
+        (6, "serialized_request", BYTES, None),
+    )
+
+
+class PublicPbrpcRequest(Message):
+    PROTO2 = True
+    FIELDS = (
+        (1, "requestHead", MESSAGE, PublicRequestHead),
+        (2, "requestBody", REPEATED_MESSAGE, PublicRequestBody),
+    )
+
+
+class PublicResponseHead(Message):
+    PROTO2 = True
+    REQUIRED = ("code",)
+    FIELDS = (
+        (1, "code", SINT32, None),
+        (2, "text", STRING, None),
+        (3, "from_host", STRING, None),
+        (4, "compress_type", UINT32, None),
+    )
+
+
+class PublicResponseBody(Message):
+    PROTO2 = True
+    REQUIRED = ("id",)
+    FIELDS = (
+        (1, "serialized_response", BYTES, None),
+        (2, "version", STRING, None),
+        (3, "error", INT32, None),
+        (4, "id", UINT64, None),
+    )
+
+
+class PublicPbrpcResponse(Message):
+    PROTO2 = True
+    FIELDS = (
+        (1, "responseHead", MESSAGE, PublicResponseHead),
+        (2, "responseBody", REPEATED_MESSAGE, PublicResponseBody),
+    )
+
+
+for _cls in (HuluRpcRequestMeta, HuluRpcResponseMeta, SofaRpcMeta,
+             PublicRequestHead, PublicRequestBody, PublicPbrpcRequest,
+             PublicResponseHead, PublicResponseBody, PublicPbrpcResponse):
     _cls.PROTO_FILE = "legacy_meta.proto"
     _cls.FULL_NAME = f"brpc_tpu.policy.{_cls.__name__}"

@@ -16,10 +16,12 @@ protobuf does:
   present as soon as any of its fields is assigned (even to the default),
   as protobuf's Python API does; a present empty sub-message is written
   as tag + zero length;
-* ``repeated int64`` is packed; elements of a repeated message are always
-  written;
+* ``repeated int64`` is packed; elements of a repeated message or a
+  repeated string are always written; a map's entries are written in the
+  order of its dict, key and value each time;
 * int32/int64 (and enum) negatives are sign-extended to ten varint
-  bytes; ``sint64`` is zigzag-encoded; ``bytes`` stay ``bytes``.
+  bytes; ``sint32`` and ``sint64`` are zigzag-encoded; ``bytes`` stay
+  ``bytes``.
 
 A class with ``PROTO2 = True`` follows proto2 instead (the legacy metas
 of ``rpc/proto/legacy_meta.py``): a scalar is written whenever it was
@@ -51,20 +53,29 @@ STRING = "string"
 BYTES = "bytes"
 INT32 = "int32"
 INT64 = "int64"
+UINT32 = "uint32"
 UINT64 = "uint64"
+SINT32 = "sint32"  # zigzag
 SINT64 = "sint64"  # zigzag
 ENUM = "enum"  # an int32 on the wire
 BOOL = "bool"
 PACKED_INT64 = "repeated int64"
+REPEATED_STRING = "repeated string"
 MESSAGE = "message"
 REPEATED_MESSAGE = "repeated message"
+# map<K, V>: the fourth slot of its FIELDS entry is (key kind, value kind,
+# value message class or None); a map's entry is written as a message
+# with the key in field 1 and the value in field 2, both always written
+MAP = "map"
 
-_DEFAULTS = {STRING: "", BYTES: b"", INT32: 0, INT64: 0, UINT64: 0,
-             SINT64: 0, ENUM: 0, BOOL: False}
-_VARINT_KINDS = (INT32, INT64, UINT64, SINT64, ENUM, BOOL)
+_DEFAULTS = {STRING: "", BYTES: b"", INT32: 0, INT64: 0, UINT32: 0,
+             UINT64: 0, SINT32: 0, SINT64: 0, ENUM: 0, BOOL: False}
+_VARINT_KINDS = (INT32, INT64, UINT32, UINT64, SINT32, SINT64, ENUM, BOOL)
 _RANGES = {INT32: (-(1 << 31), 1 << 31), ENUM: (-(1 << 31), 1 << 31),
+           SINT32: (-(1 << 31), 1 << 31),
            INT64: (-(1 << 63), 1 << 63), SINT64: (-(1 << 63), 1 << 63),
-           UINT64: (0, 1 << 64)}
+           UINT32: (0, 1 << 32), UINT64: (0, 1 << 64)}
+_COMPOSITE = (MESSAGE, REPEATED_MESSAGE, PACKED_INT64, REPEATED_STRING, MAP)
 _MASK64 = (1 << 64) - 1
 
 
@@ -100,6 +111,10 @@ def _read_varint(buf, i: int) -> Tuple[int, int]:
         shift += 7
 
 
+def _length_delimited(number: int, body: bytes) -> bytes:
+    return _varint(number << 3 | 2) + _varint(len(body)) + body
+
+
 def _signed(v: int, bits: int) -> int:
     v &= (1 << bits) - 1
     return v - (1 << bits) if v >> (bits - 1) else v
@@ -117,6 +132,48 @@ class RepeatedMessage(list):
         m = self._cls(**kwargs)
         self.append(m)
         return m
+
+
+class MessageMap(dict):
+    """A map field whose values are messages: reading a missing key adds
+    a new message under it, as protobuf's message map does."""
+
+    def __init__(self, cls):
+        super().__init__()
+        self._cls = cls
+
+    def __missing__(self, key):
+        m = self[key] = self._cls()
+        return m
+
+
+def _encode_scalar(number: int, kind: str, v) -> bytes:
+    if kind in (STRING, BYTES):
+        b = v.encode() if kind == STRING else v
+        return _varint(number << 3 | 2) + _varint(len(b)) + b
+    if kind == SINT64:
+        return _varint(number << 3) + _varint((v << 1) ^ (v >> 63))
+    if kind == SINT32:
+        return _varint(number << 3) + _varint(((v << 1) ^ (v >> 31))
+                                              & 0xFFFFFFFF)
+    return _varint(number << 3) + _varint(int(v))
+
+
+def _decode_varint_kind(kind: str, v: int):
+    if kind == BOOL:
+        return bool(v)
+    if kind in (INT32, ENUM):
+        return _signed(v, 32)
+    if kind == INT64:
+        return _signed(v, 64)
+    if kind == SINT64:
+        return (v >> 1) ^ -(v & 1)
+    if kind == SINT32:
+        v &= 0xFFFFFFFF
+        return (v >> 1) ^ -(v & 1)
+    if kind == UINT32:
+        return v & 0xFFFFFFFF
+    return v
 
 
 class Message:
@@ -142,8 +199,10 @@ class Message:
         d["_parent"] = None
         d["_has"] = set()  # proto2: the scalars assigned or parsed
         for _, name, kind, sub in self.FIELDS:
-            if kind == PACKED_INT64:
+            if kind in (PACKED_INT64, REPEATED_STRING):
                 d[name] = []
+            elif kind == MAP:
+                d[name] = MessageMap(sub[2]) if sub[2] is not None else {}
             elif kind == REPEATED_MESSAGE:
                 d[name] = RepeatedMessage(sub)
             elif kind == MESSAGE:
@@ -166,7 +225,7 @@ class Message:
         if f is None:
             raise AttributeError(f"{type(self).__name__} has no field {name!r}")
         kind = f[2]
-        if kind in (MESSAGE, REPEATED_MESSAGE, PACKED_INT64):
+        if kind in _COMPOSITE:
             raise AttributeError(
                 f"assignment not allowed to composite field {name!r}")
         if kind == STRING:
@@ -204,11 +263,24 @@ class Message:
 
     # -- encoding ----------------------------------------------------------
     def SerializeToString(self) -> bytes:
-        missing = [n for n in self.REQUIRED if n not in self._has]
+        missing = self._missing("")
         if missing:
             raise EncodeError(f"Message {self.FULL_NAME} is missing required "
                               f"fields: {','.join(missing)}")
         return self._serialize()
+
+    def _missing(self, prefix: str):
+        """The required fields unset here and in present sub-messages, by
+        protobuf's paths (``head.code``, ``body[0].id``)."""
+        out = [prefix + n for n in self.REQUIRED if n not in self._has]
+        for _, name, kind, _ in self.FIELDS:
+            v = self.__dict__[name]
+            if kind == MESSAGE and v._present:
+                out += v._missing(f"{prefix}{name}.")
+            elif kind == REPEATED_MESSAGE:
+                for i, m in enumerate(v):
+                    out += m._missing(f"{prefix}{name}[{i}].")
+        return out
 
     def _serialize(self) -> bytes:
         out = bytearray()
@@ -218,13 +290,19 @@ class Message:
             if kind in _DEFAULTS and not (name in has if has is not None
                                           else v):
                 continue
-            if kind in (STRING, BYTES):
-                b = v.encode() if kind == STRING else v
-                out += _varint(number << 3 | 2) + _varint(len(b)) + b
-            elif kind == SINT64:
-                out += _varint(number << 3) + _varint((v << 1) ^ (v >> 63))
-            elif kind in _VARINT_KINDS:
-                out += _varint(number << 3) + _varint(int(v))
+            if kind in _DEFAULTS:
+                out += _encode_scalar(number, kind, v)
+            elif kind == REPEATED_STRING:
+                for x in v:
+                    out += _encode_scalar(number, STRING, x)
+            elif kind == MAP:
+                key_kind, value_kind, _ = self._BY_NAME[name][3]
+                for k, x in v.items():
+                    body = _encode_scalar(1, key_kind, k) + (
+                        _encode_scalar(2, value_kind, x)
+                        if value_kind != MESSAGE else
+                        _length_delimited(2, x._serialize()))
+                    out += _length_delimited(number, body)
             elif kind == PACKED_INT64:
                 if v:
                     body = b"".join(_varint(int(x)) for x in v)
@@ -270,21 +348,14 @@ class Message:
             kind = f[2] if f is not None else None
             if wire == 0:
                 v, i = _read_varint(buf, i)
-                if kind == BOOL:
-                    v = bool(v)
-                elif kind in (INT32, INT64):
-                    v = _signed(v, 32 if kind == INT32 else 64)
-                elif kind == SINT64:
-                    v = (v >> 1) ^ -(v & 1)
-                elif kind == ENUM:
-                    v = _signed(v, 32)
-                    if v not in f[3]:
-                        continue  # a closed enum drops what it lacks
-                elif kind == PACKED_INT64:  # unpacked encoding
+                if kind == PACKED_INT64:  # unpacked encoding
                     d[f[1]].append(_signed(v, 64))
                     continue
-                elif kind != UINT64:
+                if kind not in _VARINT_KINDS:
                     continue
+                v = _decode_varint_kind(kind, v)
+                if kind == ENUM and v not in f[3]:
+                    continue  # a closed enum drops what it lacks
                 d[f[1]] = v
                 d["_has"].add(f[1])
             elif wire == 2:
@@ -301,6 +372,13 @@ class Message:
                 elif kind == BYTES:
                     d[f[1]] = bytes(buf[i:j])
                     d["_has"].add(f[1])
+                elif kind == REPEATED_STRING:
+                    try:
+                        d[f[1]].append(bytes(buf[i:j]).decode())
+                    except UnicodeDecodeError as e:
+                        raise DecodeError(str(e)) from None
+                elif kind == MAP:
+                    self._merge_map_entry(f, buf, i, j)
                 elif kind == PACKED_INT64:
                     k = i
                     while k < j:
@@ -323,6 +401,44 @@ class Message:
         if i != end:
             raise DecodeError("field past the end of the message")
 
+    def _merge_map_entry(self, f, buf, i: int, end: int):
+        key_kind, value_kind, value_cls = f[3]
+        key = _DEFAULTS[key_kind]
+        value = value_cls() if value_kind == MESSAGE else _DEFAULTS[value_kind]
+        while i < end:
+            tag, i = _read_varint(buf, i)
+            number, wire = tag >> 3, tag & 7
+            kind = key_kind if number == 1 else value_kind
+            if wire == 0:
+                v, i = _read_varint(buf, i)
+                v = _decode_varint_kind(kind, v)
+            elif wire == 2:
+                ln, i = _read_varint(buf, i)
+                j = i + ln
+                if j > end:
+                    raise DecodeError("length-delimited field past the end")
+                if kind == MESSAGE:
+                    value._merge(buf, i, j)
+                    value._mark()
+                    v = value
+                else:
+                    v = bytes(buf[i:j])
+                    if kind == STRING:
+                        try:
+                            v = v.decode()
+                        except UnicodeDecodeError as e:
+                            raise DecodeError(str(e)) from None
+                i = j
+            else:
+                raise DecodeError(f"unsupported wire type {wire} in a map")
+            if number == 1:
+                key = v
+            elif number == 2:
+                value = v
+        if i != end:
+            raise DecodeError("field past the end of the map entry")
+        dict.__setitem__(self.__dict__[f[1]], key, value)
+
     def __eq__(self, other):
         if type(other) is not type(self):
             return NotImplemented
@@ -335,8 +451,11 @@ class Message:
             if kind == MESSAGE:
                 if v._present:
                     parts.append(f"{name}={v!r}")
-            elif v != _DEFAULTS.get(kind, []):
-                parts.append(f"{name}={list(v) if isinstance(v, list) else v!r}")
+            elif kind in _DEFAULTS and v != _DEFAULTS[kind]:
+                parts.append(f"{name}={v!r}")
+            elif kind not in _DEFAULTS and v:
+                plain = dict(v) if isinstance(v, dict) else list(v)
+                parts.append(f"{name}={plain!r}")
         return f"{type(self).__name__}({', '.join(parts)})"
 
 

@@ -8,20 +8,24 @@ priority order, and keeps the one that matched; ``process_inline`` marks a proto
 at once in the reading task, in wire order (the device handshake must be
 done before the first request of its connection runs).
 
-The port registers eleven protocols: ``tpu_std``
+The port registers sixteen protocols: ``tpu_std``
 (rpc/tpu_std_protocol.py), ``streaming`` (rpc/streaming_protocol.py),
 ``device_handshake`` (rpc/tensor_service.py), ``http``
 (rpc/http_protocol.py), ``h2:grpc`` (rpc/h2_protocol.py),
-``hulu_pbrpc``, ``sofa_pbrpc``, ``redis``, ``memcache``, ``thrift`` and
-``nshead`` (rpc/<name>_protocol.py). HTTP comes after the three
+``hulu_pbrpc``, ``sofa_pbrpc``, ``redis``, ``memcache``, ``thrift``,
+``mongo``, ``nshead`` and ``esp`` (rpc/<name>_protocol.py), and the
+client protocols ``nova_pbrpc``, ``public_pbrpc`` and ``ubrpc``
+(rpc/legacy_nshead_family.py). HTTP comes after the three
 framings: they claim a short first read that could still become their
 magic ("T" of "TRPC") before HTTP sees it. h2 follows HTTP: its preface
 ``PRI * ...`` is no HTTP/1 request line, and a first read of "P" that
 HTTP claims (it could begin ``POST``) goes to h2 once the next bytes
 show it cannot; so does an "H" (``HEAD``) that turns into hulu's
 "HU". The magic-led protocols come next, then thrift, whose magic is in
-bytes 4-5, and nshead last: its magic sits at offset 24, so it claims a
-short first read that nothing else claimed. A channel packs through any
+bytes 4-5, mongo (a length and a known opcode in bytes 12-15, on a
+server with a mongo adaptor), nshead, whose magic sits at offset 24, so
+it claims a short first read that nothing else claimed, and esp last:
+it has no magic and is tried only on a server with an esp service. A channel packs through any
 of them but the stream frames and the handshake. ``on_pinned`` is the
 hook of a protocol whose client speaks first: it runs on a new
 connection before the connection joins the event dispatcher (h2 sends
@@ -44,10 +48,15 @@ class ProtocolType(IntEnum):
     REDIS = 5
     MEMCACHE = 6  # the binary protocol
     THRIFT = 7  # framed TBinary
+    ESP = 8  # a 32-byte head, no magic
     TENSOR = 9  # the device handshake of the tensor lane
     NSHEAD = 10  # the 36-byte-header legacy framing
     HULU = 11  # hulu_pbrpc
     SOFA = 12  # sofa_pbrpc
+    MONGO = 13  # the MongoDB wire protocol (a server's adaptor)
+    NOVA = 14  # nova_pbrpc over nshead (client; servers by an adaptor)
+    PUBLIC = 15  # public_pbrpc over nshead (likewise)
+    UBRPC = 16  # ubrpc over nshead and mcpack (likewise)
 
 
 class ParseResult:
@@ -154,7 +163,9 @@ _PARSE_PRIORITY = {
     ProtocolType.REDIS: 7,
     ProtocolType.MEMCACHE: 8,
     ProtocolType.THRIFT: 9,  # weak magic: 0x8001 after a length
+    ProtocolType.MONGO: 10,  # weak magic: a length and an opcode
     ProtocolType.NSHEAD: 11,  # weak magic: 0xfb709394 at offset 24
+    ProtocolType.ESP: 12,  # no magic: last, and only when the server asks
 }
 
 
@@ -175,10 +186,13 @@ def globally_initialize():
     with _init_lock:
         if _globally_initialized:
             return
+        from brpc_tpu_torch.rpc import esp_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import h2_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import http_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import hulu_protocol  # noqa: F401
+        from brpc_tpu_torch.rpc import legacy_nshead_family  # noqa: F401
         from brpc_tpu_torch.rpc import memcache_protocol  # noqa: F401
+        from brpc_tpu_torch.rpc import mongo_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import nshead_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import redis_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import sofa_protocol  # noqa: F401

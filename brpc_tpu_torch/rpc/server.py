@@ -24,12 +24,22 @@ method with a JSON body, and ``restful_mappings``
 (``"/v1/echo => EchoService.Echo, ..."``) give a method a path of its own.
 
 The port speaks hulu_pbrpc and sofa_pbrpc to every added service; it
-speaks redis, memcache, thrift and nshead through the service each one
-names in ``ServerOptions`` (``redis_service``, ``memcache_service``,
-``thrift_service``, ``nshead_service``), all on the one port.
+speaks redis, memcache, thrift, nshead (and through nshead the nova,
+public and ubrpc adaptors of rpc/legacy_nshead_family.py), mongo and esp
+through the service each one names in ``ServerOptions``
+(``redis_service``, ``memcache_service``, ``thrift_service``,
+``nshead_service``, ``mongo_service_adaptor``, ``esp_service``), all on
+the one port.
 
-Left out: authentication and TLS, the mongo, esp and rtmp services, the
-native runtime and its workers. ``idle_timeout_s`` and
+With ``ssl_certfile`` (and ``ssl_keyfile``) the port speaks TLS only:
+each connection's handshake runs in a task before its first byte is
+read, and everything above rides inside it, the console, gRPC and the
+device handshake included. With ``auth`` (an ``Authenticator``) every
+tpu_std and hulu request must carry a credential it verifies, or is
+answered EAUTH; the handler finds the verified ``cntl.auth_context``.
+Other protocols carry no credential, as in the reference.
+
+Left out: the rtmp service, the native runtime and its workers. ``idle_timeout_s`` and
 ``server_info_name`` are read nowhere in the reference and are not
 ported.
 """
@@ -53,6 +63,7 @@ from brpc_tpu_torch.rpc.input_messenger import InputMessenger
 from brpc_tpu_torch.rpc.method_status import MethodStatus
 from brpc_tpu_torch.rpc.protocol import globally_initialize, list_server_protocols
 from brpc_tpu_torch.rpc.service import MethodInfo, Service
+from brpc_tpu_torch.rpc.socket import tls_context
 
 
 @dataclass
@@ -66,6 +77,7 @@ class ServerOptions:
     interceptor: Optional[Callable] = None  # (cntl) -> (ok, code, text)
     session_local_data_factory: Optional[object] = None  # a DataFactory
     enabled_protocols: Tuple[str, ...] = ()  # empty: every registered one
+    auth: Optional[object] = None  # an Authenticator of tpu_std and hulu
     # the console's pages and /hotspots on the RPC port, over HTTP
     has_builtin_services: bool = True
     # "/v1/echo => EchoService.Echo, /v1/x => S.M"
@@ -80,6 +92,13 @@ class ServerOptions:
     thrift_service: Optional[object] = None
     # the port speaks nshead (an NsheadService, rpc/nshead_protocol.py)
     nshead_service: Optional[object] = None
+    # the port speaks mongo (a MongoServiceAdaptor, rpc/mongo.py)
+    mongo_service_adaptor: Optional[object] = None
+    # the port speaks esp (an EspService, rpc/esp_protocol.py)
+    esp_service: Optional[object] = None
+    # TLS: PEM paths of the certificate chain and its key; empty: plaintext
+    ssl_certfile: str = ""
+    ssl_keyfile: str = ""
     # The identity the server half of the device handshake announces: the
     # card unless the caller asks for the CPU.
     device: DeviceLike = None
@@ -99,6 +118,7 @@ class Server:
         self._stopped_event = threading.Event()
         self.start_time = 0.0  # time.time() at the last start
         self.interceptor = self.options.interceptor
+        self.auth = self.options.auth
         self.redis_service = self.options.redis_service
         self.memcache_service = self.options.memcache_service
         self.thrift_service = self.options.thrift_service
@@ -190,6 +210,14 @@ class Server:
                 from brpc_tpu_torch.builtin import register_builtin_services
 
                 register_builtin_services(self)
+            ssl_ctx = None
+            if self.options.ssl_certfile:
+                try:
+                    ssl_ctx = tls_context(server_side=True,
+                                          certfile=self.options.ssl_certfile,
+                                          keyfile=self.options.ssl_keyfile)
+                except (OSError, ValueError):
+                    return -1  # no such file, or not a key for the chain
             lfd = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_STREAM)
             lfd.setsockopt(pysocket.SOL_SOCKET, pysocket.SO_REUSEADDR, 1)
             try:
@@ -204,7 +232,7 @@ class Server:
                 protocols = [p for p in protocols
                              if p.name in self.options.enabled_protocols]
             self._messenger = InputMessenger(protocols, arg=self)
-            self._acceptor = Acceptor(self._messenger)
+            self._acceptor = Acceptor(self._messenger, ssl_context=ssl_ctx)
             self._acceptor.start_accept(lfd)
             self._started = True
             self.start_time = time.time()

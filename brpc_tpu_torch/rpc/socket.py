@@ -30,6 +30,15 @@ registered with an event dispatcher; no thread belongs to it:
   which holds the connection's DeviceEndpoint. A connection that fails
   or closes releases every send its endpoint still retains: no ACK can
   reach it any more;
+* TLS: a client socket with an ``ssl_context`` wraps the dialed
+  connection (handshake within the connect timeout) before
+  ``app_connect``, so the device handshake runs inside the TLS session;
+  a failed handshake fails the connect with ESSL (or the errno of the
+  socket's own error) and never goes on in plaintext. A connection is
+  read by its input task while another thread writes it, and one
+  OpenSSL connection is not safe for two threads at once: a context made
+  by ``tls_context`` wraps into a ``TLSSocket``, whose reads, writes and
+  close take turns;
 * the ``on_connected`` seam: a channel matches the connection to its
   protocol there and runs the hook of a protocol whose client speaks
   first (h2's preface and SETTINGS), after ``app_connect`` and before
@@ -43,6 +52,7 @@ registered with an event dispatcher; no thread belongs to it:
 from __future__ import annotations
 
 import socket as pysocket
+import ssl
 import threading
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
@@ -106,6 +116,55 @@ class _Registry:
 _registry = _Registry()
 
 
+class TLSSocket(ssl.SSLSocket):
+    """An SSLSocket whose reads, writes and close take turns (a re-entrant
+    lock per connection; each call is short, the socket being
+    non-blocking)."""
+
+    def _io_lock(self) -> threading.RLock:
+        lock = self.__dict__.get("_tls_io_lock")
+        if lock is None:
+            lock = self.__dict__.setdefault("_tls_io_lock", threading.RLock())
+        return lock
+
+    def recv(self, buflen=1024, flags=0):
+        with self._io_lock():
+            return super().recv(buflen, flags)
+
+    def send(self, data, flags=0):
+        with self._io_lock():
+            return super().send(data, flags)
+
+    def shutdown(self, how):
+        with self._io_lock():
+            return super().shutdown(how)
+
+    def _real_close(self):
+        with self._io_lock():
+            return super()._real_close()
+
+
+def tls_context(server_side: bool, certfile: str = "", keyfile: str = "",
+                verify: bool = False) -> ssl.SSLContext:
+    """A server context with its certificate chain, or a client context
+    (the system's trust store; without ``verify``, any certificate, as a
+    self-signed test server needs); either wraps into TLSSocket."""
+    if server_side:
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(certfile, keyfile or None)
+        # no TLS 1.3 session tickets: no client here resumes a session,
+        # and a ticket is bytes the client reads after its handshake
+        # while its first request may be going out
+        ctx.num_tickets = 0
+    else:
+        ctx = ssl.create_default_context()
+        if not verify:
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+    ctx.sslsocket_class = TLSSocket
+    return ctx
+
+
 def _tcp_probe(sock: "Socket") -> bool:
     """The default health check: the peer accepts a TCP connection."""
     try:
@@ -135,6 +194,7 @@ class Socket:
         self.matched_protocol = None  # kept by the InputMessenger
         self.app_state = None  # the connection's DeviceEndpoint, if any
         self.app_connect: Optional[Callable[["Socket"], int]] = None
+        self.ssl_context: Optional[ssl.SSLContext] = None  # client TLS
         self.on_connected: Optional[Callable[["Socket"], None]] = None
         self.connection_type = "single"
         self.health_check_interval_s = -1.0
@@ -168,15 +228,18 @@ class Socket:
                remote_side: Optional[EndPoint] = None,
                on_edge_triggered_events: Optional[Callable] = None,
                health_check_interval_s: float = -1,
-               app_connect: Optional[Callable[["Socket"], int]] = None) -> int:
+               app_connect: Optional[Callable[["Socket"], int]] = None,
+               ssl_context: Optional[ssl.SSLContext] = None) -> int:
         """Register a socket and return its id. With ``fd`` (accepted or
-        listening) it joins the dispatcher at once; without, it is a
-        client socket that dials on ``connect``. ``on_edge_triggered_events``
-        handles its input."""
+        listening, TLS already done) it joins the dispatcher at once;
+        without, it is a client socket that dials on ``connect``, through
+        TLS with ``ssl_context``. ``on_edge_triggered_events`` handles its
+        input."""
         sock = cls(fd, remote_side)
         sock.on_edge_triggered_events = on_edge_triggered_events
         sock.health_check_interval_s = health_check_interval_s
         sock.app_connect = app_connect
+        sock.ssl_context = ssl_context
         sock._sid = sock.node_sid = _registry.put(sock)
         _conn_count.update(1)
         if fd is not None:
@@ -209,17 +272,28 @@ class Socket:
 
     # -- connect -----------------------------------------------------------
     def connect(self, timeout_s: float = 1.0) -> int:
-        """Dial the peer, run the app_connect hook on the blocking socket
-        (the device handshake owns the connection's first bytes), make it
-        non-blocking, run the on_connected hook (a failure of it fails the
-        connect) and register it with the dispatcher."""
+        """Dial the peer, finish the TLS handshake within the timeout when
+        the socket has a context, run the app_connect hook on the blocking
+        socket (the device handshake owns the connection's first bytes),
+        make it non-blocking, run the on_connected hook (a failure of it
+        fails the connect) and register it with the dispatcher."""
         try:
             fd = pysocket.create_connection(self.remote_side.as_sockaddr(),
                                             timeout=timeout_s)
         except OSError as e:
             return e.errno or errors.EFAILEDSOCKET
-        fd.settimeout(None)
         fd.setsockopt(pysocket.IPPROTO_TCP, pysocket.TCP_NODELAY, 1)
+        if self.ssl_context is not None:
+            try:
+                fd = self.ssl_context.wrap_socket(
+                    fd, server_hostname=self.remote_side.ip)
+            except OSError as e:
+                fd.close()
+                self.error_text = f"TLS handshake failed: {e}"
+                if isinstance(e, ssl.SSLError) or not e.errno:
+                    return errors.ESSL
+                return e.errno
+        fd.settimeout(None)
         with self._state_lock:
             self._fd = fd
         if self.app_connect is not None:

@@ -3,11 +3,10 @@
 Port of brpc_tpu/rpc/socket_map.py: a "single" connection is shared by
 all channels with the same key and counted by reference; ``remove``
 drops a reference and recycles the socket at zero. The key is the
-endpoint plus the channel's signature: ssl and the app-level connect
-identity ("device" for channels that carry tensors). The port has one
-protocol and no ssl or authentication, so those parts of the reference's
-key are fixed, but kept so that the keys read alike. Channels that share
-a device connection share its DeviceEndpoint: one handshake per socket.
+endpoint plus the channel's signature: its protocol, TLS or not, its
+authenticator and the app-level connect identity ("device" for channels
+that carry tensors). Channels that share a device connection share its
+DeviceEndpoint: one handshake per socket.
 """
 from __future__ import annotations
 
@@ -42,11 +41,13 @@ class SocketMap:
 
     def insert(self, ep: EndPoint, key: SocketMapKey,
                health_check_interval_s: float = -1,
-               app_connect_factory: Optional[Callable] = None) -> int:
+               app_connect_factory: Optional[Callable] = None,
+               ssl_context=None) -> int:
         """The shared socket id of ``key``, made (unconnected) when there
         is none or the one there failed or is draining; one more
         reference either way. ``app_connect_factory`` makes the new
-        socket's connect hook (a DeviceEndpoint of its own)."""
+        socket's connect hook (a DeviceEndpoint of its own);
+        ``ssl_context`` makes it dial through TLS."""
         with self._lock:
             entry = self._map.get(key)
             if entry is not None:
@@ -64,7 +65,8 @@ class SocketMap:
                 on_edge_triggered_events=get_client_messenger().on_new_messages,
                 health_check_interval_s=health_check_interval_s,
                 app_connect=(app_connect_factory()
-                             if app_connect_factory is not None else None))
+                             if app_connect_factory is not None else None),
+                ssl_context=ssl_context)
             entry = _Entry(sid)
             entry.refcount = 1
             self._map[key] = entry

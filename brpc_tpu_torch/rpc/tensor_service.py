@@ -237,12 +237,15 @@ class TensorClient:
             # the explicit ACK frees the server's retained span and window.
             # It rides the connection that served the pull, whose endpoint
             # retains it; a balancer could send it to another server
-            # (ROADMAP queue C #8). The ACK's bytes are the reference's.
+            # (ROADMAP queue C #8). The ACK's bytes are the reference's,
+            # and it carries the channel's credential, as the reference's
+            # (sent through the channel) does.
             ack_cntl = Controller()
             ack_cntl.timeout_ms = timeout_ms
             call_on_socket(cntl._current_sock, "TensorStore.Ack", ack_cntl,
                            ts_pb2.TensorAckRequest(seq=seq),
-                           ts_pb2.TensorAckResponse())
+                           ts_pb2.TensorAckResponse(),
+                           options=getattr(self.channel, "options", None))
         return cntl, arrays
 
 

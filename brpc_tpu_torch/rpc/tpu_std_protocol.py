@@ -17,7 +17,10 @@ closes the connection (ECLOSE). A request carries the client span's
 reference). A frame compresses its payload only: tensors in the
 attachment go as they are, so a compressed push lands bit-equal. A
 response whose meta carries the SHUTDOWN bit (field 8) marks its
-connection lame duck. Left out: authentication.
+connection lame duck. A channel with ``auth`` puts its credential in
+``meta.request.auth_data``; a server with ``auth`` verifies it first
+(before the interceptor), answers EAUTH when it fails, and hands the
+handler its ``cntl.auth_context``.
 """
 from __future__ import annotations
 
@@ -30,7 +33,11 @@ from brpc_tpu_torch import rpcz
 from brpc_tpu_torch.bthread import id as bthread_id
 from brpc_tpu_torch.butil.iobuf import IOBuf
 from brpc_tpu_torch.rpc import compress, errors
-from brpc_tpu_torch.rpc.controller import Controller
+from brpc_tpu_torch.rpc.controller import (
+    Controller,
+    client_credential,
+    verify_credential,
+)
 from brpc_tpu_torch.rpc.protocol import (
     InputMessageBase,
     ParseResult,
@@ -210,6 +217,9 @@ def pack_request(payload: bytes, cntl: Controller, correlation_id: int) -> IOBuf
     if cntl._deadline is not None:
         remain_ms = max(0, int((cntl._deadline - time.monotonic()) * 1000))
         meta.request.timeout_ms = remain_ms
+    cred = client_credential(cntl)
+    if cred is not None:
+        meta.request.auth_data = cred
     meta.correlation_id = correlation_id
     if cntl._request_stream is not None:
         meta.stream_id = cntl._request_stream.stream_id
@@ -305,6 +315,9 @@ def process_request(msg: RpcMessage):
 
     if server is None:
         cntl.set_failed(errors.EINVAL, "no server bound to connection")
+        return send_rpc_response(sock, cid, cntl, None, IOBuf())
+
+    if not verify_credential(server, cntl, meta.request.auth_data, sock):
         return send_rpc_response(sock, cid, cntl, None, IOBuf())
 
     if server.interceptor is not None:

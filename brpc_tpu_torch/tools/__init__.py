@@ -8,7 +8,8 @@ and has ``main(argv=None) -> int``:
     python -m brpc_tpu_torch.tools.rpc_view 127.0.0.1:8000 vars
     python -m brpc_tpu_torch.tools.parallel_http --url http://127.0.0.1:8000/status -n 100
     python -m brpc_tpu_torch.tools.trackme_server --port 8877
+    python -m brpc_tpu_torch.tools.mcpack2pb_gen brpc_tpu_torch.rpc.proto.wire:EchoRequest -o echo_mcpack.py
 
 They speak to servers of either package: the wire and the console pages
-are the same.
+are the same. mcpack2pb_gen writes source that imports only the port.
 """

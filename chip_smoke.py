@@ -3,7 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --peer`` is the second process of phases 6, 8,
-9, 10, 12, 13, 14, 15 and 16; the script starts it itself.)
+9, 10, 12, 13, 14, 15 and 16, and ``--peer --tls`` that of phase 17; the
+script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -229,7 +230,35 @@ unavailable, or when the port is not beside it:
             nshead, /vars TensorStore_Push_count moved by 16, the device
             endpoints, arena and pool at rest. (f) The ``redis_kv``,
             ``memcache_kv``, ``thrift_echo`` and ``legacy_pbrpc_echo``
-            examples exit 0 with the reference's lines. The peer exits 0.
+            examples exit 0 with the reference's lines. The peer exits 0;
+17. tls — one ``--peer --tls`` whose one port speaks TLS only (the
+            test-only pair in brpc_tpu_torch/testdata) and checks an
+            ``HmacAuthenticator`` credential on tpu_std and hulu: it serves
+            TensorStore, SmokeEcho, the console, h2, a ``NovaServiceAdaptor``
+            as its nshead service, a mongo adaptor and an esp service; in
+            the same process plaintext ports serve nova (with mongo and
+            esp), public_pbrpc and ubrpc, one adaptor each. (a) The
+            activations [4, 512, 2048] bfloat16 (8 MiB, from the seeded
+            generator) pushed and pulled + ACKed 5 times by the wire lane
+            (the bytes inside TLS) and by shm (a descriptor inside TLS, the
+            bytes in the shared arena, as in the reference), landed on the
+            peer's card and back bit-equal: ms a round beside phase 6's
+            plaintext wire lane at 8 MiB, and the lane each push took. (b) A
+            wrong secret and no credential get EAUTH over tpu_std and hulu;
+            the handler sees the client's user; a plaintext client fails
+            within its timeout and a TLS call is answered at once after it.
+            (c) 16 threads make 64 Echo calls each on one TLS connection
+            while two threads echo 8 MiB made on the card each way; every
+            reply reaches its own call. (d) /status and /vars over HTTPS:
+            the Echo calls and the pushes counted exactly; a gRPC call over
+            TLS. (e) 200 sequential calls each over nova, public_pbrpc,
+            ubrpc, mongo (a ping) and esp in plaintext: median and p99 us
+            beside 16a's nshead; one call of nova, mongo and esp inside TLS.
+            (f) ``nshead_extension`` exits 0 with the reference's line; the
+            output of the ``mcpack2pb_gen`` command line imports in a fresh
+            interpreter (nothing of jax, brpc_tpu or protobuf) and serves
+            an nshead call there. The device endpoints, arena and pool at
+            rest, the peer's card memory back; the peer exits 0.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -248,7 +277,10 @@ import os
 import re
 import select
 import shutil
+import socket as pysocket
+import ssl
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -277,6 +309,7 @@ from brpc_tpu_torch.examples import (
     legacy_pbrpc_echo,
     memcache_kv,
     multi_threaded_echo,
+    nshead_extension,
     partition_echo,
     redis_kv,
     selective_echo,
@@ -311,10 +344,13 @@ from brpc_tpu_torch.rpc import (
 from brpc_tpu_torch.rpc import (
     cuda_ipc_transfer,
     errors,
+    esp_protocol,
     h2_protocol,
+    mongo,
     rpc_dump,
     trackme,
 )
+from brpc_tpu_torch.rpc.authenticator import HmacAuthenticator
 from brpc_tpu_torch.rpc.channel import call_on_socket, get_client_messenger
 from brpc_tpu_torch.rpc.compress import (
     COMPRESS_GZIP,
@@ -323,6 +359,11 @@ from brpc_tpu_torch.rpc.compress import (
 )
 from brpc_tpu_torch.rpc.concurrency_limiter import create_concurrency_limiter
 from brpc_tpu_torch.rpc.http_message import HttpRequest
+from brpc_tpu_torch.rpc.legacy_nshead_family import (
+    NovaServiceAdaptor,
+    PublicPbrpcServiceAdaptor,
+    UbrpcServiceAdaptor,
+)
 from brpc_tpu_torch.rpc.memcache import (
     MemcacheRequest,
     MemcacheResponse,
@@ -345,7 +386,7 @@ from brpc_tpu_torch.rpc.redis import (
     RedisResponse,
 )
 from brpc_tpu_torch.rpc.service import Service, rpc_method
-from brpc_tpu_torch.rpc.socket import Socket
+from brpc_tpu_torch.rpc.socket import Socket, TLSSocket
 from brpc_tpu_torch.rpc.tensor_service import (
     TensorClient,
     TensorStoreService,
@@ -354,6 +395,7 @@ from brpc_tpu_torch.rpc.tensor_service import (
 from brpc_tpu_torch.rpc.thrift import T_STRING, ThriftMessage, ThriftService
 from brpc_tpu_torch.tensor import ModelConfig, forward_local, init_params
 from brpc_tpu_torch.tools import (
+    mcpack2pb_gen,
     parallel_http,
     rpc_press,
     rpc_replay,
@@ -675,6 +717,7 @@ class SmokePeer(Service):
         self.stopped_at = None
         self.stop_concurrency = None
         self.relay = self.relay_store = self.relay_channel = None
+        self.side_ports = {}  # phase 17: the plaintext ports of the family
 
     def set_relay(self, on: bool):
         """13a: a second Server in this process; with ``on`` the store
@@ -782,6 +825,7 @@ class SmokePeer(Service):
             "h2": [h2_state(s.h2_conn) for s in conns
                    if getattr(s, "h2_conn", None) is not None],
             "echo_timeouts_ms": SmokeEcho.timeouts_ms,
+            "side_ports": self.side_ports,
             "relay_stored": (sorted(self.relay_store._store)
                              if self.relay_store is not None else None),
             "rpcz": {"server_pushes": server_pushes, "max_spans": max_spans,
@@ -844,6 +888,19 @@ class SmokeEcho(Service):
             SmokeEcho.timeouts_ms.append(cntl.timeout_ms)
             time.sleep(request.sleep_us / 1e6)
         response.message = request.message
+        if request.message == AUTH_PROBE_17:  # 17b: who the server saw
+            ctx = cntl.auth_context
+            response.message = ctx.user if ctx is not None else ""
+        done()
+
+
+class SmokeMongo(mongo.MongoServiceAdaptor):
+    """17e: a ping answers ok, any other query its collection."""
+
+    def process_mongo_request(self, cntl, request, response, done):
+        query = request.query or {}
+        response.documents = [{"ok": 1.0} if "ping" in query
+                              else {"collection": request.collection}]
         done()
 
 
@@ -890,19 +947,44 @@ class SmokeStore(TensorStoreService):
         super().Push(cntl, request, response, landed)
 
 
-def peer_main() -> int:
+def peer_main(tls: bool = False) -> int:
+    """With ``tls`` (phase 17) the one port speaks TLS only and checks an
+    HmacAuthenticator credential; its nshead service is a nova adaptor
+    beside a mongo adaptor and an esp service, and plaintext ports in
+    this process serve nova (with mongo and esp), public_pbrpc and ubrpc,
+    one adaptor each."""
     if not torch.cuda.is_available():
         print("chip_smoke --peer: CUDA is not available", file=sys.stderr)
         return 2
     store = SmokeStore()
     streams = SmokeStreams()
     side = SmokePeer(store, streams)
-    srv = Server(ServerOptions(
+    echo = SmokeEcho()
+    opts = dict(
         num_threads=PEER_THREADS, redis_service=DictRedisService(),
         memcache_service=MemcacheService(), thrift_service=smoke_thrift(),
         nshead_service=NsheadPbServiceAdaptor.for_method(
-            "EchoService.Echo")))
-    for svc in (store, side, streams, SmokeEcho()):
+            "EchoService.Echo"))
+    side_servers = []
+    if tls:
+        cert, key = tls_pair()
+        opts.update(ssl_certfile=cert, ssl_keyfile=key,
+                    auth=HmacAuthenticator(TLS_SECRET_17),
+                    nshead_service=NovaServiceAdaptor(echo),
+                    mongo_service_adaptor=SmokeMongo(),
+                    esp_service=esp_protocol.EspService())
+        for proto, adaptor in FAMILY_17.items():
+            extra = (dict(mongo_service_adaptor=SmokeMongo(),
+                          esp_service=esp_protocol.EspService())
+                     if proto == "nova_pbrpc" else {})
+            s = Server(ServerOptions(num_threads=PEER_THREADS,
+                                     has_builtin_services=False,
+                                     nshead_service=adaptor(echo), **extra))
+            check(s.start("127.0.0.1:0") == 0, f"peer {proto} server start")
+            side.side_ports[proto] = s.listen_endpoint.port
+            side_servers.append(s)
+    srv = Server(ServerOptions(**opts))
+    for svc in (store, side, streams, echo):
         check(srv.add_service(svc) == 0, "peer add_service")
     check(srv.start("127.0.0.1:0") == 0, "peer server start")
     arena = dt.default_send_arena()  # named here: a killed peer leaves it
@@ -915,6 +997,8 @@ def peer_main() -> int:
     while srv.is_running and not quit_.wait(0.05):
         pass
     srv.stop()
+    for s in side_servers:
+        s.stop()
     side.close_relay()
     if side.stopped_at is not None:
         print(f"peer stopped {side.stopped_at} {side.stop_concurrency}",
@@ -927,11 +1011,12 @@ def peer_main() -> int:
     return 0
 
 
-def spawn_peer():
+def spawn_peer(tls: bool = False):
     """The peer in a fresh interpreter (never a fork after CUDA started)."""
     here = os.path.dirname(os.path.abspath(__file__))
     return subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--peer"],
+        [sys.executable, os.path.abspath(__file__), "--peer"]
+        + (["--tls"] if tls else []),
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=here)
 
 
@@ -4032,6 +4117,497 @@ def phase_legacy(tag: str, gen, wire_MBps: float, grpc: dict,
     return result
 
 
+# -- phase 17: TLS and authentication; the nshead family, mongo and esp --------
+
+TLS_SECRET_17 = b"chip-smoke-tls"
+TLS_USER_17 = "smoke"
+AUTH_PROBE_17 = "who-am-i"  # SmokeEcho answers the user it verified
+FAMILY_17 = {"nova_pbrpc": NovaServiceAdaptor,
+             "public_pbrpc": PublicPbrpcServiceAdaptor,
+             "ubrpc": UbrpcServiceAdaptor}
+ROUNDS_17 = 5  # 17a: push + pull + ACK rounds per lane
+CONC_17 = (16, 64)  # 17c: threads, Echo calls each on one connection
+BIG_17 = (2, 2, 8 << 20)  # 17c: threads, echoes each, bytes each way
+SEQ_17 = 200  # 17e: sequential calls a protocol
+TLS_LINE_17 = "nshead-mcpack reply: 'hELLO nshead'"
+
+
+def tls_pair():
+    """(certificate, key): the test-only pair beside the port."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "brpc_tpu_torch", "testdata")
+    return (os.path.join(here, "tls_selfsigned_cert.pem"),
+            os.path.join(here, "tls_selfsigned_key.pem"))
+
+
+def _tls_opts(**kw) -> dict:
+    opts = dict(use_ssl=True, connect_timeout_ms=5000, timeout_ms=60000,
+                auth=HmacAuthenticator(TLS_SECRET_17, user=TLS_USER_17))
+    opts.update(kw)
+    return opts
+
+
+def tls_channel(target: str, **kw) -> Channel:
+    ch = Channel(ChannelOptions(**_tls_opts(**kw)))
+    check(ch.init(target) == 0, f"17: TLS channel init {kw}")
+    return ch
+
+
+def _echo_17(ch: Channel, message: str):
+    cntl, resp = Controller(), wire.EchoResponse()
+    cntl.timeout_ms = 60000
+    ch.call_method(ECHO, cntl, wire.EchoRequest(message=message), resp)
+    return cntl, resp.message
+
+
+def https_get(port: int, path: str) -> bytes:
+    """A console page over HTTPS, the server's certificate verified."""
+    ctx = ssl.create_default_context(cafile=tls_pair()[0])
+    conn = http.client.HTTPSConnection("127.0.0.1", port, timeout=60,
+                                       context=ctx)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        body = r.read()
+        check(r.status == 200, f"17d: GET {path} over HTTPS: {r.status}")
+        return body
+    finally:
+        conn.close()
+
+
+def raw_tls_ms(payload: bytes, rounds: int = 3) -> float:
+    """The floor of Python's TLS on this host: ``payload`` one way between
+    two threads of this process over loopback, blocking sockets and the
+    test pair, answered by one byte (median ms)."""
+    cert, key = tls_pair()
+    sctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    sctx.load_cert_chain(cert, key)
+    cctx = ssl.create_default_context(cafile=cert)
+    n = len(payload)
+    with pysocket.create_server(("127.0.0.1", 0)) as lsock:
+
+        def sink():
+            conn, _ = lsock.accept()
+            with sctx.wrap_socket(conn, server_side=True) as c:
+                for _ in range(rounds):
+                    got = 0
+                    while got < n:
+                        got += len(c.recv(1 << 20))
+                    c.sendall(b"k")
+
+        t = threading.Thread(target=sink)
+        t.start()
+        times = []
+        with cctx.wrap_socket(pysocket.create_connection(
+                lsock.getsockname(), timeout=60),
+                server_hostname="127.0.0.1") as c:
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                c.sendall(payload)
+                check(c.recv(1) == b"k", "17a: the raw TLS sink")
+                times.append(time.perf_counter() - t0)
+        t.join(60)
+    return round(statistics.median(times) * 1e3, 3)
+
+
+def tls_lanes(target: str, ctl, devch, gen, wire_round_s: float,
+              tag: str) -> dict:
+    """17a: the activations by the wire lane inside TLS and by shm, whose
+    bytes go outside it, each landed on the peer's card and pulled back."""
+    dev = torch.device("cuda")
+    act = torch.randn((BATCH, SEQ, BIG.d_model), dtype=torch.bfloat16,
+                      device=dev, generator=gen)
+    nbytes = act.numel() * act.element_size()
+    wire_ch = tls_channel(target)
+    out = {}
+    try:
+        for lane, ch in (("wire", wire_ch), ("shm", devch)):
+            client = TensorClient(ch)
+            times, pushes, took = [], [], []
+            for r in range(ROUNDS_17):
+                name = f"tls-{lane}-{r}"
+                sent0 = dt.lane_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cntl, resp = client.push(name, [act])
+                pushes.append(time.perf_counter() - t0)
+                check(not cntl.failed() and resp.ok,
+                      f"17a: {name} push: {cntl.error_text}")
+                pcntl, got = client.pull(name, device=dev)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                check(not pcntl.failed() and got is not None,
+                      f"17a: {name} pull: {pcntl.error_text}")
+                moved = sorted(k for k, v in dt.lane_counters().items()
+                               if v != sent0.get(k))
+                took.append("+".join(moved))
+                check(moved == [lane], f"17a: {name} took {moved}")
+                check(isinstance(cntl._current_sock.fd(), TLSSocket),
+                      f"17a: {name} did not go over TLS")
+                if lane != "wire":
+                    check(len(cntl.request_attachment) == 0,
+                          f"17a: {name}: the payload rode the RPC")
+                check(torch.equal(u8(got[0]), u8(act)),
+                      f"17a: {name}: the pulled bytes differ")
+                del got
+            st = peer_control(ctl, "state")
+            for r in range(ROUNDS_17):
+                check(st["contents"][f"tls-{lane}-{r}"][0].startswith("cuda"),
+                      f"17a: tls-{lane}-{r} is not on the peer's card")
+            med = statistics.median(times)
+            out[lane] = {"ms_per_round": round(med * 1e3, 3),
+                         "push_ms": round(statistics.median(pushes) * 1e3, 3),
+                         "GBps": round(2 * nbytes / med / 1e9, 3),
+                         "lanes": took}
+    finally:
+        wire_ch.close()
+    out["plaintext_wire_ms_per_round"] = round(wire_round_s * 1e3, 3)
+    out["raw_tls_ms_one_way"] = raw_tls_ms(u8(act).cpu().numpy().tobytes())
+    print(f"tls/17a: the activations {list(act.shape)} bfloat16 ({nbytes} B)"
+          f" pushed and pulled + ACKed {ROUNDS_17} times by each lane, "
+          f"landed on the peer's card and back bit-equal: wire lane inside "
+          f"TLS {out['wire']['ms_per_round']} ms a round, its push "
+          f"{out['wire']['push_ms']} ms ({out['wire']['GBps']} GB/s), shm "
+          f"(a descriptor inside TLS, the bytes in the shared arena) "
+          f"{out['shm']['ms_per_round']} ms, its push {out['shm']['push_ms']}"
+          f" ms ({out['shm']['GBps']} GB/s); the lane of each push: wire "
+          f"{out['wire']['lanes']}, shm {out['shm']['lanes']}; phase 6's "
+          f"plaintext wire lane at 8 MiB in this run: "
+          f"{out['plaintext_wire_ms_per_round']} ms a round; Python's TLS "
+          f"alone moved the {nbytes} B one way between two threads in "
+          f"{out['raw_tls_ms_one_way']} ms {tag}")
+    return out
+
+
+def tls_auth(target: str, tag: str) -> dict:
+    """17b: EAUTH for a wrong secret and for none, over tpu_std and hulu;
+    the user the handler saw; a plaintext client refused, then TLS at
+    once."""
+    out = {"echo_calls": 0}
+    for proto in ("tpu_std", "hulu_pbrpc"):
+        ch = tls_channel(target, protocol=proto)
+        try:
+            cntl, user = _echo_17(ch, AUTH_PROBE_17)
+            check(not cntl.failed() and user == TLS_USER_17,
+                  f"17b: {proto} saw {user!r}: {cntl.error_text}")
+            out["echo_calls"] += 1
+        finally:
+            ch.close()
+        for label, auth in (("wrong", HmacAuthenticator(b"wrong",
+                                                        user=TLS_USER_17)),
+                            ("none", None)):
+            ch = tls_channel(target, protocol=proto, auth=auth, max_retry=0)
+            try:
+                cntl, _ = _echo_17(ch, "x")
+                check(cntl.error_code == errors.EAUTH,
+                      f"17b: {proto} {label} credential gave "
+                      f"{cntl.error_code} {cntl.error_text}")
+            finally:
+                ch.close()
+    plain = Channel(ChannelOptions(timeout_ms=2000, max_retry=0))
+    check(plain.init(target) == 0, "17b: plaintext channel init")
+    t0 = time.perf_counter()
+    cntl, _ = _echo_17(plain, "plain")
+    out["plaintext_failed_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    plain.close()
+    check(cntl.failed() and out["plaintext_failed_ms"] < 2000,
+          f"17b: a plaintext call gave {cntl.error_code} in "
+          f"{out['plaintext_failed_ms']} ms")
+    out["plaintext_error"] = cntl.error_code
+    ch = tls_channel(target)
+    try:
+        t0 = time.perf_counter()
+        cntl, msg = _echo_17(ch, "after")
+        out["tls_after_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        check(not cntl.failed() and msg == "after",
+              f"17b: the TLS call after it: {cntl.error_text}")
+        out["echo_calls"] += 1
+    finally:
+        ch.close()
+    print(f"tls/17b: a wrong secret and no credential got EAUTH over tpu_std "
+          f"and hulu_pbrpc; the handler saw user {TLS_USER_17!r} over both; "
+          f"a plaintext call failed with {out['plaintext_error']} in "
+          f"{out['plaintext_failed_ms']} ms (timeout 2000 ms), and a TLS call "
+          f"after it was answered in {out['tls_after_ms']} ms (its handshake "
+          f"included) {tag}")
+    return out
+
+
+def tls_load(target: str, gen, tag: str) -> dict:
+    """17c: 16 threads x 64 Echo calls on one TLS connection, with 8 MiB
+    echoes each way beside them; every reply is its call's."""
+    threads, calls = CONC_17
+    big_threads, big_calls, big_n = BIG_17
+    blobs = [torch.randint(0, 256, (big_n,), dtype=torch.uint8,
+                           device=torch.device("cuda"), generator=gen
+                           ).cpu().numpy().tobytes() for _ in range(big_threads)]
+    ch = tls_channel(target, max_retry=0)
+    bad, socks, big_ms = [], set(), []
+
+    def small(t):
+        for j in range(calls):
+            msg = f"{t}-{j}" * (1 + j % 4)
+            cntl, got = _echo_17(ch, msg)
+            socks.add(cntl._current_sock.socket_id)
+            if cntl.failed() or got != msg:
+                bad.append((t, j, cntl.error_code, cntl.error_text))
+
+    def big(k):
+        for r in range(big_calls):
+            cntl, resp = Controller(), Blob()
+            cntl.timeout_ms = 60000
+            t0 = time.perf_counter()
+            ch.call_method("SmokePeer.Echo", cntl, Blob(blobs[k]), resp)
+            big_ms.append((time.perf_counter() - t0) * 1e3)
+            socks.add(cntl._current_sock.socket_id)
+            if cntl.failed() or resp.data != blobs[k]:
+                bad.append(("big", k, r, cntl.error_code, cntl.error_text))
+
+    t0 = time.perf_counter()
+    try:
+        _run_threads([lambda t=t: small(t) for t in range(threads)]
+                     + [lambda k=k: big(k) for k in range(big_threads)],
+                     "17c", 120)
+    finally:
+        ch.close()
+    secs = time.perf_counter() - t0
+    check(not bad, f"17c: {len(bad)} replies wrong, first {bad[:3]}")
+    check(len(socks) == 1, f"17c: the calls used {len(socks)} connections")
+    out = {"echo_calls": threads * calls, "seconds": round(secs, 3),
+           "calls_per_s": round(threads * calls / secs, 1),
+           "big_echo_ms_median": round(statistics.median(big_ms), 3)}
+    print(f"tls/17c: {threads} threads x {calls} Echo calls and "
+          f"{big_threads} x {big_calls} echoes of {big_n} B made on the card "
+          f"each way, all on one TLS connection: every reply its own call's, "
+          f"in {out['seconds']} s ({out['calls_per_s']} Echo calls/s), an "
+          f"8 MiB echo {out['big_echo_ms_median']} ms median {tag}")
+    return out
+
+
+def tls_console(port: int, target: str, status0: bytes, vars0: bytes,
+                echo_made: int, pushes: int, tag: str) -> dict:
+    """17d: a gRPC call over TLS, then /status and /vars over HTTPS count
+    every Echo call and push made in this phase."""
+    gch = Channel(ChannelOptions(protocol=GRPC, use_ssl=True,
+                                 connect_timeout_ms=5000, timeout_ms=60000))
+    check(gch.init(target) == 0, "17d: gRPC channel init")
+    try:
+        cntl, msg = _echo_17(gch, "grpc over tls")
+        check(not cntl.failed() and msg == "grpc over tls",
+              f"17d: gRPC over TLS: {cntl.error_text}")
+        check(isinstance(cntl._current_sock.fd(), TLSSocket),
+              "17d: the gRPC call did not go over TLS")
+    finally:
+        gch.close()
+    echo_made += 1
+    status1, vars1 = https_get(port, "/status"), https_get(port, "/vars")
+    echo_moved = _push_count(status1, ECHO) - _push_count(status0, ECHO)
+    push_moved = (_var_of(vars1, "TensorStore_Push_count")
+                  - _var_of(vars0, "TensorStore_Push_count"))
+    check(echo_moved == echo_made,
+          f"17d: /status counts {echo_moved} Echo calls, made {echo_made}")
+    check(push_moved == pushes,
+          f"17d: /vars moved TensorStore_Push_count by {push_moved}, "
+          f"pushed {pushes}")
+    print(f"tls/17d: a gRPC call over TLS answered; over HTTPS /status counts "
+          f"{echo_moved} Echo calls, each one made, and /vars moved "
+          f"TensorStore_Push_count by {push_moved}, the pushes made {tag}")
+    return {"status_echo": echo_moved, "vars_push_count": push_moved}
+
+
+def _mongo_ping_17(sock, request_id: int) -> dict:
+    body = (struct.pack("<i", 0) + b"admin.$cmd\x00" + struct.pack("<ii", 0, 1)
+            + mongo.bson_encode({"ping": 1}))
+    sock.sendall(mongo.MongoHead(mongo.HEAD_SIZE + len(body), request_id, 0,
+                                 mongo.OP_QUERY).pack() + body)
+    raw = b""
+    while len(raw) < mongo.HEAD_SIZE or len(raw) < struct.unpack_from(
+            "<i", raw)[0]:
+        chunk = sock.recv(65536)
+        check(bool(chunk), "17e: the mongo connection closed")
+        raw += chunk
+    head = mongo.MongoHead.unpack(raw)
+    check(head.op_code == mongo.OP_REPLY and head.response_to == request_id,
+          f"17e: mongo reply {head.op_code} to {head.response_to}")
+    return mongo.bson_decode(raw, mongo.HEAD_SIZE + 20)[0]
+
+
+def _family_call(ch: Channel, proto: str, i: int):
+    """(controller, whether the answer is the call's) of one call."""
+    if proto == "esp":
+        cntl, resp = Controller(), esp_protocol.EspMessage()
+        cntl.timeout_ms = 60000
+        ch.call_method("esp", cntl, esp_protocol.EspMessage(
+            f"e{i}".encode(), msg=1, msg_id=i), resp)
+        return cntl, resp.body == f"e{i}".encode() and resp.msg_id == i
+    cntl, msg = _echo_17(ch, f"s{i}")
+    return cntl, msg == f"s{i}"
+
+
+def tls_family(port: int, sides: dict, legacy_seq: dict, tag: str) -> dict:
+    """17e: nova, public_pbrpc, ubrpc, mongo and esp, 200 sequential calls
+    each in plaintext; one nova call, mongo ping and esp call inside TLS."""
+    out = {}
+    for proto in (*FAMILY_17, "mongo", "esp"):
+        side = sides["nova_pbrpc" if proto in ("mongo", "esp") else proto]
+        times = []
+        if proto == "mongo":
+            with pysocket.create_connection(("127.0.0.1", side),
+                                            timeout=60) as s:
+                for i in range(SEQ_17):
+                    t0 = time.perf_counter()
+                    doc = _mongo_ping_17(s, i + 1)
+                    times.append(time.perf_counter() - t0)
+                    check(doc == {"ok": 1.0}, f"17e: mongo ping {i}: {doc}")
+        else:
+            ch = Channel(ChannelOptions(protocol=proto, timeout_ms=60000))
+            check(ch.init(f"127.0.0.1:{side}") == 0, f"17e: {proto} init")
+            try:
+                for i in range(SEQ_17):
+                    t0 = time.perf_counter()
+                    cntl, ok = _family_call(ch, proto, i)
+                    times.append(time.perf_counter() - t0)
+                    check(not cntl.failed() and ok,
+                          f"17e: {proto} call {i}: {cntl.error_text}")
+            finally:
+                ch.close()
+        out[proto] = {"median_us": round(statistics.median(times) * 1e6, 1),
+                      "p99_us": round(_p99(times) * 1e3, 1)}
+    target = f"127.0.0.1:{port}"
+    for proto in ("nova_pbrpc", "esp"):
+        ch = tls_channel(target, protocol=proto)
+        try:
+            cntl, ok = _family_call(ch, proto, 7)
+            check(not cntl.failed() and ok and isinstance(
+                cntl._current_sock.fd(), TLSSocket),
+                  f"17e: {proto} inside TLS: {cntl.error_text}")
+        finally:
+            ch.close()
+    ctx = ssl.create_default_context(cafile=tls_pair()[0])
+    with ctx.wrap_socket(pysocket.create_connection(("127.0.0.1", port),
+                                                    timeout=60),
+                         server_hostname="127.0.0.1") as s:
+        check(_mongo_ping_17(s, 77) == {"ok": 1.0}, "17e: mongo inside TLS")
+    nshead = legacy_seq["nshead"]
+    print(f"tls/17e: {SEQ_17} sequential calls each in plaintext, median / "
+          f"p99 us: " + "; ".join(f"{p} {v['median_us']} / {v['p99_us']}"
+                                  for p, v in out.items())
+          + f"; 16a's nshead in this run: {nshead['median_us']} / "
+          f"{nshead['p99_us']}; a nova call, an esp call and a mongo ping "
+          f"answered inside TLS on the one port {tag}")
+    return out
+
+
+def tls_programs(tag: str) -> dict:
+    """17f: nshead_extension as a user runs it; the mcpack2pb_gen command
+    line's adaptor imported and serving in a fresh interpreter, a host
+    program whose server asks for the CPU (an nshead call lands nothing
+    on a card, and CUDA's start would take most of the phase)."""
+    rc, lines, secs = run_main(nshead_extension.main, [])
+    check(rc == 0 and lines == [TLS_LINE_17],
+          f"17f: nshead_extension exited {rc}: {lines}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = (
+        "import sys\n"
+        "import echo_adaptor as g\n"
+        "from brpc_tpu_torch import mcpack2pb as mp, rpc\n"
+        "from brpc_tpu_torch.examples.nshead_extension import EchoService\n"
+        "from brpc_tpu_torch.rpc.nshead_protocol import NsheadMessage\n"
+        "srv = rpc.Server(rpc.ServerOptions(device='cpu',\n"
+        "    has_builtin_services=False,\n"
+        "    nshead_service=g.EchoServiceNsheadAdaptor(EchoService())))\n"
+        "assert srv.start('127.0.0.1:0') == 0\n"
+        "ch = rpc.Channel(rpc.ChannelOptions(protocol='nshead',"
+        " timeout_ms=60000))\n"
+        "assert ch.init(str(srv.listen_endpoint)) == 0\n"
+        "body = mp.enc_object('', [mp.enc_str('method', 'Echo'),\n"
+        "                          mp.enc_str('message', 'Generated')])\n"
+        "cntl, resp = ch.call('nshead', NsheadMessage(body), NsheadMessage)\n"
+        "msg = mp.loads(resp.body)['message'] if not cntl.failed() else None\n"
+        "msg = msg.decode() if isinstance(msg, bytes) else msg\n"
+        "ch.close()\n"
+        "srv.stop()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+        "print(cntl.error_code, msg, bad)\n")
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "echo_adaptor.py")
+        rc_gen, _, _ = run_main(mcpack2pb_gen.main, [
+            "--service", "brpc_tpu_torch.examples.nshead_extension:EchoService",
+            "-o", out])
+        check(rc_gen == 0 and os.path.exists(out),
+              f"17f: mcpack2pb_gen exited {rc_gen}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", script], cwd=d, capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join([d, here])))
+        fresh_s = round(time.perf_counter() - t0, 3)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    check(proc.returncode == 0 and line == "0 gENERATED []",
+          f"17f: the generated adaptor in a fresh interpreter: "
+          f"{proc.returncode} {line!r} {proc.stderr[-2000:]}")
+    print(f"tls/17f: nshead_extension exited 0 in {secs} s with the "
+          f"reference's line {TLS_LINE_17!r}; mcpack2pb_gen --service wrote "
+          f"an adaptor whose module, imported in a fresh interpreter with "
+          f"nothing of jax, brpc_tpu or protobuf, served an nshead call "
+          f"('gENERATED') in {fresh_s} s {tag}")
+    return {"example_seconds": secs, "fresh_interpreter_seconds": fresh_s}
+
+
+def phase_tls(tag: str, gen, wire_round_s: float, legacy_seq: dict) -> dict:
+    """17: TLS and authentication on a --peer --tls's one port, and the
+    nshead family, mongo and esp."""
+    t_start = time.perf_counter()
+    proc = spawn_peer(tls=True)
+    ctl = devch = None
+    result = {}
+    try:
+        port, _ = await_peer(proc)
+        target = f"127.0.0.1:{port}"
+        ctl = tls_channel(target)
+        st = peer_control(ctl, "to_card", on=True)
+        sides = st["side_ports"]
+        check(sorted(sides) == sorted(FAMILY_17),
+              f"17: the peer's plaintext ports {sides}")
+        devch = _device_channel(target, **_tls_opts())
+        warm = torch.ones((1 << 20,), dtype=torch.float32,
+                          device=torch.device("cuda"))
+        client = TensorClient(devch)
+        check(not client.push("warm", [warm])[0].failed(), "17: warm push")
+        check(not client.pull("warm", device="cuda")[0].failed(),
+              "17: warm pull")
+        peer0 = peer_control(ctl, "reset")["memory_allocated"]
+        status0, vars0 = https_get(port, "/status"), https_get(port, "/vars")
+        result["lanes"] = tls_lanes(target, ctl, devch, gen, wire_round_s, tag)
+        result["auth"] = tls_auth(target, tag)
+        result["load"] = tls_load(target, gen, tag)
+        echo_made = result["auth"]["echo_calls"] + result["load"]["echo_calls"]
+        result["console"] = tls_console(port, target, status0, vars0,
+                                        echo_made, 2 * ROUNDS_17, tag)
+        result["family"] = tls_family(port, sides, legacy_seq, tag)
+        st = _reset_at_rest(ctl, devch, peer0, "17")
+        print(f"tls/17: the device endpoints, arena and pool at rest, the "
+              f"peer's card memory back at {st['memory_allocated']} B {tag}")
+        result["programs"] = tls_programs(tag)
+        for ch in (devch, ctl):
+            ch.close()
+        devch = ctl = None
+        rc = stop_peer(proc)
+        proc = None
+        check(rc == 0, f"17: the peer exited with code {rc}")
+    finally:
+        for ch in (devch, ctl):
+            if ch is not None:
+                ch.close()
+        if proc is not None:
+            stop_peer(proc)
+    result["seconds"] = round(time.perf_counter() - t_start, 1)
+    print(f"tls/17: the peer exited 0; phase took {result['seconds']} s {tag}")
+    print("tls " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4064,7 +4640,8 @@ def main() -> int:
     examples = phase_examples(tag, gen)
     wire_8mib = 2 * BATCH * SEQ * BIG.d_model * 2 / lanes["wire/8MiB-act"]
     grpc = phase_grpc(tag, gen, wire_8mib / 1e6, examples["press"])
-    phase_legacy(tag, gen, wire_8mib / 1e6, grpc, examples["press"])
+    legacy = phase_legacy(tag, gen, wire_8mib / 1e6, grpc, examples["press"])
+    phase_tls(tag, gen, lanes["wire/8MiB-act"], legacy["sequential"])
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "
@@ -4077,4 +4654,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(peer_main() if sys.argv[1:] == ["--peer"] else main())
+    if sys.argv[1:2] == ["--peer"]:
+        sys.exit(peer_main(tls=sys.argv[2:] == ["--tls"]))
+    sys.exit(main())

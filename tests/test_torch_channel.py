@@ -250,9 +250,10 @@ def test_channel_init_rejects_garbage():
         assert ref_rpc.Channel().init(url, lb) == ref_errors.EINVAL
         assert rpc.Channel().init(url, lb) == errors.EINVAL
     assert rpc.Channel().init("1.2.3.4") == errors.EINVAL
-    # a protocol the port does not speak (yet) is refused; the stream
-    # frames and the device handshake pack no request
-    for protocol in ("mongo", "nova_pbrpc", "streaming"):
+    # a protocol the port does not speak (yet) is refused; mongo is a
+    # server's protocol only, and the stream frames and the device
+    # handshake pack no request
+    for protocol in ("rtmp", "mongo", "streaming"):
         assert (rpc.Channel(rpc.ChannelOptions(protocol=protocol)).init(
             "1.2.3.4:80") == errors.EPROTONOTSUP)
 

@@ -264,7 +264,9 @@ CLIENT_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "rpc.proto.legacy_meta", "rpc.pb_dispatch", "rpc.hulu_protocol",
     "rpc.sofa_protocol", "rpc.redis", "rpc.redis_protocol", "rpc.memcache",
     "rpc.memcache_protocol", "rpc.thrift", "rpc.thrift_protocol",
-    "mcpack2pb", "rpc.nshead_protocol")]
+    "mcpack2pb", "rpc.nshead_protocol", "rpc.authenticator",
+    "rpc.legacy_nshead_family", "rpc.mongo", "rpc.mongo_protocol",
+    "rpc.esp_protocol", "rpc.proto.mapdemo", "mcpack2pb_gen")]
 # the examples' and the tools' twins, each a program a user starts
 PROGRAM_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "examples.echo", "examples.asynchronous_echo",
@@ -276,7 +278,8 @@ PROGRAM_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "examples.tensor_transport", "examples.device_performance",
     "examples.parallel_echo", "examples.grpc_echo", "examples.redis_kv",
     "examples.memcache_kv", "examples.thrift_echo",
-    "examples.legacy_pbrpc_echo", "tools.rpc_press",
+    "examples.legacy_pbrpc_echo", "examples.nshead_extension",
+    "tools.mcpack2pb_gen", "tools.rpc_press",
     "tools.rpc_replay", "tools.rpc_view", "tools.parallel_http", "tools.trackme_server",
     "rpc.trackme")]
 

@@ -12,7 +12,8 @@ brpc_tpu's, on the CPU.
   mcpack adaptor over the Echo service) beside tpu_std: every protocol
   both ways on one connection, the port's one port also over HTTP, h2
   and a raw redis PING, each protocol's first frame sent one byte at a
-  time, pipelined calls from 8 threads on one connection (redis,
+  time (mongo's and esp's too: the port server has a mongo adaptor and an
+  esp service beside the others), pipelined calls from 8 threads on one connection (redis,
   memcache, nshead), 1 MiB values, errors (ENOMETHOD, ENOSERVICE, the
   thrift exception, a redis error reply), hulu and sofa compressed with
   each codec, the Echo calls counted on the method's status, a client
@@ -67,7 +68,7 @@ from brpc_tpu_torch.examples import (
     redis_kv,
     thrift_echo,
 )
-from brpc_tpu_torch.rpc import errors
+from brpc_tpu_torch.rpc import errors, esp_protocol, mongo
 from brpc_tpu_torch.rpc import hulu_protocol as hulu
 from brpc_tpu_torch.rpc import memcache
 from brpc_tpu_torch.rpc import memcache_protocol
@@ -85,6 +86,9 @@ WAIT_S = 3.0
 ECHO = "EchoService.Echo"
 PROTOCOLS = ("hulu_pbrpc", "sofa_pbrpc", "redis", "memcache", "thrift",
              "nshead")
+# the port server also speaks the weak- and no-magic mongo and esp, so
+# every first frame below is read beside them
+FIRST_FRAMES = PROTOCOLS + ("mongo", "esp")
 
 # -- codecs ------------------------------------------------------------------
 
@@ -419,6 +423,13 @@ def _thrift_service(mod):
     return svc
 
 
+class _PingAdaptor(mongo.MongoServiceAdaptor):
+    def process_mongo_request(self, cntl, request, response, done):
+        response.documents = [{"ok": 1.0 if "ping" in (request.query or {})
+                               else 0.0}]
+        done()
+
+
 PORT = SimpleNamespace(rpc=rpc, redis=redis, memcache=memcache, thrift=thrift,
                        nshead=nshead, mcpack=mcpack2pb, Req=wire.EchoRequest,
                        Resp=wire.EchoResponse)
@@ -439,7 +450,9 @@ def servers():
             redis_service=redis.DictRedisService(),
             memcache_service=memcache.MemcacheService(),
             thrift_service=_thrift_service(thrift),
-            nshead_service=nshead.NsheadPbServiceAdaptor.for_method(ECHO)))
+            nshead_service=nshead.NsheadPbServiceAdaptor.for_method(ECHO),
+            mongo_service_adaptor=_PingAdaptor(),
+            esp_service=esp_protocol.EspService()))
         port.add_service(PortEcho())
         port.add_service(_order_service(rpc, wire.EchoRequest,
                                         wire.EchoResponse))
@@ -559,6 +572,23 @@ def _echo_text(payload: bytes) -> str:
     return resp.message
 
 
+def _mongo_reply_parse(portal, sock, read_eof, arg):
+    """A whole OP_REPLY, as bytes."""
+    if len(portal) < mongo.HEAD_SIZE:
+        return ParseResult.not_enough()
+    head = mongo.MongoHead.unpack(bytes(portal.copy_to_bytes(16)))
+    if len(portal) < head.message_length:
+        return ParseResult.not_enough()
+    return ParseResult.ok(bytes(portal.cutn_bytes(head.message_length)))
+
+
+def _mongo_ping() -> bytes:
+    body = (struct.pack("<i", 0) + b"admin.$cmd\x00" + struct.pack("<ii", 0, 1)
+            + mongo.bson_encode({"ping": 1}))
+    return mongo.MongoHead(mongo.HEAD_SIZE + len(body), 7, 0,
+                           mongo.OP_QUERY).pack() + body
+
+
 def _first_frames():
     """Each protocol's first request frame, its parse, and a check of the
     answer."""
@@ -597,6 +627,17 @@ def _first_frames():
                    nshead.parse,
                    lambda m: (m.msg.log_id == 4 and mcpack2pb.mcpack_to_pb(
                        m.msg.body, wire.EchoResponse).message == "split")),
+        # a length and an opcode (bytes 12-15): weak magic
+        "mongo": (_mongo_ping(), _mongo_reply_parse,
+                  lambda m: (mongo.MongoHead.unpack(m).response_to == 7
+                             and mongo.bson_decode(m, mongo.HEAD_SIZE + 20)[0]
+                             == {"ok": 1.0})),
+        # no magic at all: tried last
+        "esp": (esp_protocol.EspMessage(b"split", msg=3, msg_id=5).serialize(),
+                lambda buf, s, eof, arg: esp_protocol.parse(
+                    buf, SimpleNamespace(_esp_pipeline=()), eof, arg),
+                lambda m: (m.msg.body, m.msg.msg, m.msg.msg_id) == (
+                    b"split", 3, 5)),
     }
 
 
@@ -608,7 +649,7 @@ def _wait_for(cond, what: str):
     return got
 
 
-@pytest.mark.parametrize("protocol", PROTOCOLS)
+@pytest.mark.parametrize("protocol", FIRST_FRAMES)
 def test_first_frame_one_byte_at_a_time(servers, protocol):
     frame, parse, ok = _first_frames()[protocol]
     srv = servers["port"]
