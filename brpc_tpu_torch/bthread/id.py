@@ -3,11 +3,12 @@
 Port of brpc_tpu/bthread/id.py. An id names one in-flight RPC; ``lock``
 serialises every touch to its data; ``error`` delivers a failure to the
 owner's ``on_error`` under the lock (queued while the lock is held);
-``unlock_and_destroy`` makes every copy of the id stale. A ranged id
-lets id+k address the same slot: the controller gives attempt k of an
-RPC the version id+1+k, so a response to an abandoned attempt, a
-deadline and a socket failure all race through one lock, and whatever
-comes after the RPC ended finds a stale id and is dropped.
+``unlock_and_destroy`` makes every copy of the id stale and wakes its
+joiners (``join``). A ranged id lets id+k address the same slot: the
+controller gives attempt k of an RPC the version id+1+k, so a response
+to an abandoned attempt, a deadline and a socket failure all race
+through one lock, and whatever comes after the RPC ended finds a stale
+id and is dropped.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ OnError = Callable[[int, object, int, str], None]
 
 class _IdSlot:
     __slots__ = ("first_version", "range", "locked", "destroyed", "data",
-                 "on_error", "pending_errors", "cond")
+                 "on_error", "pending_errors", "cond", "joined")
 
     def __init__(self):
         self.first_version = 1
@@ -33,6 +34,7 @@ class _IdSlot:
         self.on_error: Optional[OnError] = None
         self.pending_errors: deque = deque()
         self.cond = threading.Condition()
+        self.joined = threading.Event()
 
 
 _slots: Dict[int, _IdSlot] = {}
@@ -43,6 +45,10 @@ _registry_lock = threading.Lock()
 
 def _default_on_error(id_value: int, data, error_code: int, error_text: str):
     unlock_and_destroy(id_value)
+
+
+def create(data=None, on_error: Optional[OnError] = None) -> int:
+    return create_ranged(data, on_error, 1)
 
 
 def create_ranged(data=None, on_error: Optional[OnError] = None,
@@ -65,6 +71,7 @@ def create_ranged(data=None, on_error: Optional[OnError] = None,
         slot.data = data
         slot.on_error = on_error or _default_on_error
         slot.pending_errors.clear()
+        slot.joined = threading.Event()
         return (index << 32) | slot.first_version
 
 
@@ -95,6 +102,19 @@ def lock(id_value: int, timeout: Optional[float] = None):
                 raise TimeoutError(f"lock timeout on {id_value:#x}")
 
 
+def trylock(id_value: int):
+    """The id's data with the lock taken, or None when it is held or the
+    id is stale; KeyError for an id never made."""
+    slot, version = _resolve(id_value)
+    if slot is None:
+        raise KeyError(f"invalid bthread_id {id_value:#x}")
+    with slot.cond:
+        if not _valid(slot, version) or slot.locked:
+            return None
+        slot.locked = True
+        return slot.data
+
+
 def unlock(id_value: int):
     """Release the lock, after handing one queued error, if any, to
     on_error with the lock still held."""
@@ -118,7 +138,8 @@ def unlock(id_value: int):
 
 
 def unlock_and_destroy(id_value: int):
-    """Make every copy of the id stale; wake the lock waiters."""
+    """Make every copy of the id stale; wake the lock waiters and the
+    joiners."""
     slot, _ = _resolve(id_value)
     if slot is None:
         raise KeyError(f"invalid bthread_id {id_value:#x}")
@@ -128,8 +149,22 @@ def unlock_and_destroy(id_value: int):
         slot.locked = False
         slot.pending_errors.clear()
         slot.cond.notify_all()
+        slot.joined.set()
     with _registry_lock:
         _free_indexes.append(id_value >> 32)
+
+
+def join(id_value: int, timeout: Optional[float] = None) -> bool:
+    """Wait until the id is destroyed; True at once for a stale id, False
+    when ``timeout`` (seconds) passed first."""
+    slot, version = _resolve(id_value)
+    if slot is None:
+        return True
+    with slot.cond:
+        if not _valid(slot, version):
+            return True
+        joined = slot.joined
+    return joined.wait(timeout)
 
 
 def error(id_value: int, error_code: int, error_text: str = "") -> bool:

@@ -3,8 +3,9 @@
 Copy of brpc_tpu/butil/endpoint.py: an (ip, port) value type with the
 reference's optional device coordinate suffix (``ip:port/tpu:p.s.c.r``),
 kept so that both packages parse the same naming-service texts into the
-same nodes and reject the same garbage. The port itself never sets a
-coordinate; it only carries one through.
+same nodes and reject the same garbage. ``of_device``, ``with_device``
+and ``is_ici`` make and read a coordinate as the reference does; the
+port's lanes never route by one, they only carry it through.
 """
 from __future__ import annotations
 
@@ -55,6 +56,18 @@ class EndPoint:
             dev = DeviceCoord(int(m.group("pod")), int(m.group("slc")),
                               int(m.group("chip")), int(m.group("core")))
         return cls(host, port, dev)
+
+    @classmethod
+    def of_device(cls, coord: DeviceCoord, port: int = 0) -> "EndPoint":
+        """An endpoint named by its coordinate alone (no routable ip)."""
+        return cls("0.0.0.0", port, coord)
+
+    def with_device(self, coord: DeviceCoord) -> "EndPoint":
+        return EndPoint(self.ip, self.port, coord)
+
+    def is_ici(self) -> bool:
+        """True when the endpoint carries a device coordinate."""
+        return self.device is not None
 
     def resolve(self) -> "EndPoint":
         """A hostname resolved to an IPv4 address."""

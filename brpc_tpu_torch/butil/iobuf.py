@@ -1,53 +1,98 @@
 """IOBuf — a chain of blocks viewed through (block, offset, length) refs.
 
-Port of the parts of brpc_tpu/butil/iobuf.py that the tensor lane uses.
-Blocks are host bytes, or DEVICE blocks that hold a ``torch.Tensor``
+Port of brpc_tpu/butil/iobuf.py. Blocks are host bytes, user memory
+(``append_user_data``: zero-copy, with a deleter and a 64-bit meta that
+travel with the block), or DEVICE blocks that hold a ``torch.Tensor``
 (the counterpart of ``Block.device_block``): a tensor rides the chain
-untouched and is copied to the host once, when a wire boundary reads its
-bytes. A socket reads into one (``append_from_socket``) and writes from
-one (``cut_into_socket``) without blocking, through TLS as well (an
-``ssl.SSLSocket``: a view at a time, and the TLS layer's want-read and
-want-write are would-block). Left out: the thread-local block cache,
-user blocks with deleters and the read-arena seam.
+untouched (``device_arrays`` returns it as the same storage) and is
+copied to the host once, when a wire boundary or
+``cut_into_file_descriptor`` reads its bytes. A per-thread block cache
+(``share_tls_block``) gives writers and fd readers the free tail of
+one block after another. ``IOPortal`` is the IOBuf a socket reads into:
+``append_from_socket`` without blocking, through TLS as well (an
+``ssl.SSLSocket``: a record at a time, the TLS layer's want-read and
+want-write are would-block), and ``append_from_file_descriptor``;
+``cut_into_socket`` writes from the front. ``IOBufAppender`` and
+``IOBufCutter`` are the sequential writer and front parser. Left out:
+the read-arena seam (``set_block_allocator``, ROADMAP A12).
 """
 from __future__ import annotations
 
 import errno
+import os
 import ssl
+import threading
 from collections import deque
 from itertools import islice
-from typing import Iterable, Union
+from typing import Callable, Iterable, List, Optional, Union
 
 import torch
 
 
 TLS_READ = 32768  # a TLS record holds at most 16 KiB of data
+DEFAULT_BLOCK_SIZE = 8192  # a cached block's payload
+IOV_MAX = 64  # views in one gathered write
+
+_tls = threading.local()
 
 
 class Block:
-    """A contiguous chunk: host bytes, or a tensor (``kind == DEVICE``)."""
+    """A contiguous chunk: host bytes, user memory (``kind == USER``) or a
+    tensor (``kind == DEVICE``). A block made by ``writable`` is filled
+    from its front; refs view only what was filled."""
 
-    __slots__ = ("data", "size", "kind", "device_array")
+    __slots__ = ("data", "size", "capacity", "kind", "deleter", "meta",
+                 "device_array")
 
     HOST = 0
+    USER = 1  # caller-owned memory, handed to ``deleter`` on release
     DEVICE = 2
 
     def __init__(self, data: bytes):
         self.data = data
         self.size = len(data)
+        self.capacity = self.size
         self.kind = Block.HOST
+        self.deleter: Optional[Callable] = None
+        self.meta = 0
         self.device_array = None
+
+    @classmethod
+    def writable(cls, capacity: int = DEFAULT_BLOCK_SIZE) -> "Block":
+        """An empty host block of ``capacity`` bytes."""
+        b = cls(bytearray(capacity))
+        b.size = 0
+        b.capacity = capacity
+        return b
+
+    @classmethod
+    def user_block(cls, mem, deleter: Optional[Callable] = None,
+                   meta: int = 0) -> "Block":
+        b = cls(mem)
+        b.kind = Block.USER
+        b.deleter = deleter
+        b.meta = meta
+        return b
 
     @classmethod
     def device_block(cls, tensor) -> "Block":
         """Wrap a tensor (on the card or the host). Zero-copy until a wire
         boundary reads its bytes."""
-        b = cls.__new__(cls)
+        b = cls(b"")
         b.data = None
-        b.size = tensor.numel() * tensor.element_size()
+        b.size = b.capacity = tensor.numel() * tensor.element_size()
         b.kind = Block.DEVICE
         b.device_array = tensor
         return b
+
+    def left_space(self) -> int:
+        return self.capacity - self.size
+
+    def release(self):
+        """Hand user memory to its deleter, once."""
+        if self.deleter is not None:
+            self.deleter(self.data)
+            self.deleter = None
 
     def materialize(self):
         """Host view of the block's bytes. A DEVICE block costs one
@@ -56,6 +101,31 @@ class Block:
             t = self.device_array.detach().contiguous().cpu()
             self.data = memoryview(t.reshape(-1).view(torch.uint8).numpy())
         return self.data
+
+
+def _tls_block_cache() -> List[Block]:
+    cache = getattr(_tls, "blocks", None)
+    if cache is None:
+        cache = _tls.blocks = []
+    return cache
+
+
+def share_tls_block() -> Block:
+    """This thread's cached block with free space, a new one when the
+    last is full."""
+    cache = _tls_block_cache()
+    while cache:
+        b = cache[-1]
+        if b.left_space() > 0:
+            return b
+        cache.pop()
+    b = Block.writable()
+    cache.append(b)
+    return b
+
+
+def release_tls_blocks():
+    _tls_block_cache().clear()
 
 
 class BlockRef:
@@ -105,6 +175,13 @@ class IOBuf:
         if data:
             b = Block(data)
             self._append_ref(BlockRef(b, 0, b.size))
+
+    def append_user_data(self, mem, deleter: Optional[Callable] = None,
+                         meta: int = 0):
+        """Zero-copy append of caller-owned memory; ``meta`` travels with
+        the block and ``deleter(mem)`` runs when it is released."""
+        b = Block.user_block(mem, deleter, meta)
+        self._append_ref(BlockRef(b, 0, b.size))
 
     def append_device_array(self, tensor):
         """Zero-copy append of a tensor."""
@@ -167,7 +244,64 @@ class IOBuf:
     def to_bytes(self) -> bytes:
         return bytes(self.copy_to_bytes())
 
-    def append_from_socket(self, fd, max_bytes: int) -> int:
+    def cut_into_socket(self, fd, max_views: int = IOV_MAX) -> int:
+        """Send from the front and drop what was sent; returns the bytes
+        sent. A full socket raises BlockingIOError. A plain socket takes
+        one ``sendmsg`` of up to max_views blocks; a TLS socket, which
+        cannot gather, the front block alone (the same bytes again when
+        the TLS layer asked to be called back)."""
+        if isinstance(fd, ssl.SSLSocket):
+            if not self._refs:
+                return 0
+            try:
+                n = fd.send(self._refs[0].view())
+            except (ssl.SSLWantWriteError, ssl.SSLWantReadError):
+                raise BlockingIOError(errno.EAGAIN, "tls wants the socket")
+        else:
+            views = [r.view() for r in islice(self._refs, max_views)]
+            n = fd.sendmsg(views) if views else 0
+        self.pop_front(n)
+        return n
+
+    def device_arrays(self) -> List:
+        """The tensors riding the chain's DEVICE blocks, in order (the
+        same storage, not copies)."""
+        return [r.block.device_array for r in self._refs
+                if r.block.kind == Block.DEVICE]
+
+    def cut_into_file_descriptor(self, fd: int,
+                                 max_bytes: Optional[int] = None) -> int:
+        """One gathered write of the front of the chain (a DEVICE block's
+        tensor is read to the host first); drops and returns what was
+        written."""
+        limit = (self._length if max_bytes is None
+                 else min(max_bytes, self._length))
+        views, got = [], 0
+        for r in islice(self._refs, IOV_MAX):
+            if got >= limit:
+                break
+            take = min(r.length, limit - got)
+            v = r.view()
+            views.append(v[:take] if take < r.length else v)
+            got += take
+        if not views:
+            return 0
+        n = os.writev(fd, views)
+        if n > 0:
+            self.pop_front(n)
+        return n
+
+    def iter_views(self) -> Iterable[memoryview]:
+        for r in self._refs:
+            yield r.view()
+
+
+class IOPortal(IOBuf):
+    """The IOBuf a connection reads into."""
+
+    __slots__ = ()
+
+    def append_from_socket(self, fd, max_bytes: int = 65536) -> int:
         """Append at most max_bytes read from ``fd``; 0 at EOF. A socket
         with nothing to read raises BlockingIOError. A plain socket takes
         one ``recv``; a TLS socket is read record by record until
@@ -196,25 +330,73 @@ class IOBuf:
             got += len(data)
         return got
 
-    def cut_into_socket(self, fd, max_views: int = 64) -> int:
-        """Send from the front and drop what was sent; returns the bytes
-        sent. A full socket raises BlockingIOError. A plain socket takes
-        one ``sendmsg`` of up to max_views blocks; a TLS socket, which
-        cannot gather, the front block alone (the same bytes again when
-        the TLS layer asked to be called back)."""
-        if isinstance(fd, ssl.SSLSocket):
-            if not self._refs:
-                return 0
+    def append_from_file_descriptor(self, fd: int,
+                                    max_bytes: int = 65536) -> int:
+        """Read at most max_bytes from ``fd`` into this thread's cached
+        blocks; 0 at EOF, BlockingIOError when nothing is there yet."""
+        got = 0
+        while got < max_bytes:
+            b = share_tls_block()
+            want = min(b.left_space(), max_bytes - got)
             try:
-                n = fd.send(self._refs[0].view())
-            except (ssl.SSLWantWriteError, ssl.SSLWantReadError):
-                raise BlockingIOError(errno.EAGAIN, "tls wants the socket")
-        else:
-            views = [r.view() for r in islice(self._refs, max_views)]
-            n = fd.sendmsg(views) if views else 0
-        self.pop_front(n)
-        return n
+                data = os.read(fd, want)
+            except BlockingIOError:
+                if got == 0:
+                    raise
+                break
+            if not data:
+                break  # EOF: the bytes read so far first
+            n = len(data)
+            b.data[b.size: b.size + n] = data
+            self._append_ref(BlockRef(b, b.size, n))
+            b.size += n
+            got += n
+            if n < want:
+                break
+        return got
 
-    def iter_views(self) -> Iterable[memoryview]:
-        for r in self._refs:
-            yield r.view()
+
+class IOBufAppender:
+    """A sequential writer into an IOBuf."""
+
+    __slots__ = ("buf",)
+
+    def __init__(self):
+        self.buf = IOBuf()
+
+    def append(self, data):
+        self.buf.append(data)
+
+    def push_back(self, byte: int):
+        self.buf.append(bytes([byte]))
+
+    def take(self) -> IOBuf:
+        """What was written; the appender starts a new IOBuf."""
+        out, self.buf = self.buf, IOBuf()
+        return out
+
+
+class IOBufCutter:
+    """A sequential parser of an IOBuf's front."""
+
+    __slots__ = ("_buf",)
+
+    def __init__(self, buf: IOBuf):
+        self._buf = buf
+
+    def remaining(self) -> int:
+        return len(self._buf)
+
+    def peek_bytes(self, n: int) -> bytes:
+        return bytes(self._buf.copy_to_bytes(n))
+
+    def cutn(self, n: int) -> bytes:
+        if len(self._buf) < n:
+            raise EOFError(f"need {n} bytes, have {len(self._buf)}")
+        return bytes(self._buf.cutn_bytes(n))
+
+    def cut_uint32_be(self) -> int:
+        return int.from_bytes(self.cutn(4), "big")
+
+    def cut_uint64_be(self) -> int:
+        return int.from_bytes(self.cutn(8), "big")

@@ -15,6 +15,8 @@ the CPU). The other examples are host programs; ``grpc_echo`` calls one
 server over gRPC and over tpu_std on its one port, ``legacy_pbrpc_echo``
 over hulu_pbrpc, sofa_pbrpc and tpu_std, ``redis_kv``,
 ``memcache_kv`` and ``thrift_echo`` call a server that speaks redis,
-memcache or thrift, and ``nshead_extension`` one whose nshead front end
-mcpack2pb_gen writes.
+memcache or thrift, ``nshead_extension`` one whose nshead front end
+mcpack2pb_gen writes, and ``rtmp_relay`` relays a live RTMP stream,
+dumps it to FLV and MPEG-TS and pulls it to a second server over the
+digest handshake.
 """

@@ -51,7 +51,9 @@ device handshake runs inside it; a failed handshake fails the attempt,
 never falling back to plaintext. Channels differing in either do not
 share a connection. The nshead family (``nova_pbrpc``,
 ``public_pbrpc``, ``ubrpc``) and ``esp`` are client protocols here as
-in the reference. Left out: the rtmp client and the native runtime.
+in the reference. RTMP has a client of its own, not a channel:
+rpc/rtmp_client.py's ``RtmpClient``, as in the reference. Left out:
+the native runtime.
 
 With the ``rpc_dump`` flag on, each call's serialized request is
 recorded before it is compressed or sent (rpc/rpc_dump.py).

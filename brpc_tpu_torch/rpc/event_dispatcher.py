@@ -35,6 +35,7 @@ class EventDispatcher:
         self._write_consumers: Dict[int, Callable] = {}
         self._suspended: set = set()
         self._thread: Optional[threading.Thread] = None
+        self._stop = False
         self._started_lock = threading.Lock()
 
     # -- public (thread-safe) ---------------------------------------------
@@ -47,13 +48,17 @@ class EventDispatcher:
         """One-shot writable wakeup (AddEpollOut, event_dispatcher.h:80)."""
         self._enqueue(("add_write", fd, on_writable))
 
+    def remove_consumer(self, fd: int):
+        """Stop watching fd; the caller keeps and closes it."""
+        self._enqueue(("remove", fd, None))
+
     def remove_and_close(self, fd: int, fileobj):
         """Unregister fd and close ``fileobj`` on the loop thread, in that
         order. A close on the caller's thread races the loop: the selector
         would poll a closed fd until the queued remove applies, and a new
         connection could reuse the fd number, so that the stale remove
         unregisters the new socket's consumer."""
-        if self._thread is None or not self._thread.is_alive():
+        if self._stop or self._thread is None or not self._thread.is_alive():
             try:
                 fileobj.close()
             except OSError:
@@ -79,6 +84,15 @@ class EventDispatcher:
                     target=self._run, name="event_dispatcher", daemon=True
                 )
                 self._thread.start()
+
+    def stop(self):
+        """End the loop after its current round."""
+        self._stop = True
+        self._wake()
+
+    def join(self, timeout: float = 2.0):
+        if self._thread:
+            self._thread.join(timeout)
 
     # -- internals ---------------------------------------------------------
     def _enqueue(self, op):
@@ -113,7 +127,7 @@ class EventDispatcher:
                 elif kind == "add_write":
                     self._write_consumers[fd] = cb
                     self._reregister(fd)
-                elif kind == "remove_close":
+                elif kind in ("remove", "remove_close"):
                     self._read_consumers.pop(fd, None)
                     self._write_consumers.pop(fd, None)
                     self._suspended.discard(fd)
@@ -121,10 +135,11 @@ class EventDispatcher:
                         self._selector.unregister(fd)
                     except (KeyError, ValueError, OSError):
                         pass
-                    try:
-                        cb.close()  # cb slot carries the file object
-                    except OSError:
-                        pass
+                    if kind == "remove_close":
+                        try:
+                            cb.close()  # cb slot carries the file object
+                        except OSError:
+                            pass
             except (ValueError, OSError):
                 # fd already closed — consumer cleanup races are benign
                 self._read_consumers.pop(fd, None)
@@ -148,7 +163,7 @@ class EventDispatcher:
             self._selector.register(fd, events, None)
 
     def _run(self):
-        while True:
+        while not self._stop:
             self._apply_pending()
             try:
                 events = self._selector.select(timeout=0.5)

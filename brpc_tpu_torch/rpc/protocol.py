@@ -8,13 +8,13 @@ priority order, and keeps the one that matched; ``process_inline`` marks a proto
 at once in the reading task, in wire order (the device handshake must be
 done before the first request of its connection runs).
 
-The port registers sixteen protocols: ``tpu_std``
+The port registers seventeen protocols: ``tpu_std``
 (rpc/tpu_std_protocol.py), ``streaming`` (rpc/streaming_protocol.py),
 ``device_handshake`` (rpc/tensor_service.py), ``http``
 (rpc/http_protocol.py), ``h2:grpc`` (rpc/h2_protocol.py),
 ``hulu_pbrpc``, ``sofa_pbrpc``, ``redis``, ``memcache``, ``thrift``,
-``mongo``, ``nshead`` and ``esp`` (rpc/<name>_protocol.py), and the
-client protocols ``nova_pbrpc``, ``public_pbrpc`` and ``ubrpc``
+``mongo``, ``nshead``, ``esp`` and ``rtmp`` (rpc/<name>_protocol.py),
+and the client protocols ``nova_pbrpc``, ``public_pbrpc`` and ``ubrpc``
 (rpc/legacy_nshead_family.py). HTTP comes after the three
 framings: they claim a short first read that could still become their
 magic ("T" of "TRPC") before HTTP sees it. h2 follows HTTP: its preface
@@ -25,8 +25,11 @@ show it cannot; so does an "H" (``HEAD``) that turns into hulu's
 bytes 4-5, mongo (a length and a known opcode in bytes 12-15, on a
 server with a mongo adaptor), nshead, whose magic sits at offset 24, so
 it claims a short first read that nothing else claimed, and esp last:
-it has no magic and is tried only on a server with an esp service. A channel packs through any
-of them but the stream frames and the handshake. ``on_pinned`` is the
+it has no magic and is tried only on a server with an esp service.
+RTMP comes after it, as in the reference: it claims a connection whose
+first byte is 0x03, on a server with an rtmp service only, and holds the
+whole conversation in its parse. A channel packs through any of them
+but the stream frames, the handshake and RTMP. ``on_pinned`` is the
 hook of a protocol whose client speaks first: it runs on a new
 connection before the connection joins the event dispatcher (h2 sends
 its preface there).
@@ -57,6 +60,7 @@ class ProtocolType(IntEnum):
     NOVA = 14  # nova_pbrpc over nshead (client; servers by an adaptor)
     PUBLIC = 15  # public_pbrpc over nshead (likewise)
     UBRPC = 16  # ubrpc over nshead and mcpack (likewise)
+    RTMP = 17  # RTMP media relay (a server's rtmp service)
 
 
 class ParseResult:
@@ -165,7 +169,8 @@ _PARSE_PRIORITY = {
     ProtocolType.THRIFT: 9,  # weak magic: 0x8001 after a length
     ProtocolType.MONGO: 10,  # weak magic: a length and an opcode
     ProtocolType.NSHEAD: 11,  # weak magic: 0xfb709394 at offset 24
-    ProtocolType.ESP: 12,  # no magic: last, and only when the server asks
+    ProtocolType.ESP: 12,  # no magic: only when the server asks
+    ProtocolType.RTMP: 13,  # first byte 0x03: last, only when the server asks
 }
 
 
@@ -195,6 +200,7 @@ def globally_initialize():
         from brpc_tpu_torch.rpc import mongo_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import nshead_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import redis_protocol  # noqa: F401
+        from brpc_tpu_torch.rpc import rtmp_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import sofa_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import streaming_protocol  # noqa: F401
         from brpc_tpu_torch.rpc import tensor_service  # noqa: F401

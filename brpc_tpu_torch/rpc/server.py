@@ -29,7 +29,9 @@ public and ubrpc adaptors of rpc/legacy_nshead_family.py), mongo and esp
 through the service each one names in ``ServerOptions``
 (``redis_service``, ``memcache_service``, ``thrift_service``,
 ``nshead_service``, ``mongo_service_adaptor``, ``esp_service``), all on
-the one port.
+the one port. With ``rtmp_service`` (an ``RtmpService``,
+rpc/rtmp_protocol.py) the port is also a live RTMP relay: publishers
+and players hold RTMP sessions on it beside every other protocol.
 
 With ``ssl_certfile`` (and ``ssl_keyfile``) the port speaks TLS only:
 each connection's handshake runs in a task before its first byte is
@@ -39,7 +41,7 @@ tpu_std and hulu request must carry a credential it verifies, or is
 answered EAUTH; the handler finds the verified ``cntl.auth_context``.
 Other protocols carry no credential, as in the reference.
 
-Left out: the rtmp service, the native runtime and its workers. ``idle_timeout_s`` and
+Left out: the native runtime and its workers. ``idle_timeout_s`` and
 ``server_info_name`` are read nowhere in the reference and are not
 ported.
 """
@@ -96,6 +98,8 @@ class ServerOptions:
     mongo_service_adaptor: Optional[object] = None
     # the port speaks esp (an EspService, rpc/esp_protocol.py)
     esp_service: Optional[object] = None
+    # the port relays RTMP (an RtmpService, rpc/rtmp_protocol.py)
+    rtmp_service: Optional[object] = None
     # TLS: PEM paths of the certificate chain and its key; empty: plaintext
     ssl_certfile: str = ""
     ssl_keyfile: str = ""

@@ -47,7 +47,10 @@ registered with an event dispatcher; no thread belongs to it:
 * protocol state: whatever a protocol attaches to a socket (HTTP's ids in
   request order, h2's connection) is every attribute beyond those a new
   socket has, and a revived socket drops it all: it does not hold for
-  the new connection.
+  the new connection. An ``on_protocol_failed`` callable among it runs
+  in a task when the socket fails (an RTMP session leaves its relay);
+* ``write_backlog_bytes``: the bytes queued and not yet written, which a
+  media relay reads to shed a player that stopped reading.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ from brpc_tpu_torch import bvar
 from brpc_tpu_torch.bthread import id as bthread_id
 from brpc_tpu_torch.bthread import start_background, timer_add
 from brpc_tpu_torch.butil.endpoint import EndPoint
-from brpc_tpu_torch.butil.iobuf import IOBuf
+from brpc_tpu_torch.butil.iobuf import IOBuf, IOPortal
 from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.event_dispatcher import get_global_dispatcher
 
@@ -190,7 +193,7 @@ class Socket:
         self.node_sid = 0  # the balancer's node this connection serves
         self.remote_side = remote_side
         self.on_edge_triggered_events: Optional[Callable[["Socket"], None]] = None
-        self.read_portal = IOBuf()
+        self.read_portal = IOPortal()
         self.matched_protocol = None  # kept by the InputMessenger
         self.app_state = None  # the connection's DeviceEndpoint, if any
         self.app_connect: Optional[Callable[["Socket"], int]] = None
@@ -365,6 +368,12 @@ class Socket:
                 get_global_dispatcher(fdno).resume_read(fdno)
 
     # -- write -------------------------------------------------------------
+    def write_backlog_bytes(self) -> int:
+        """Bytes queued and not yet written: what a media relay reads to
+        shed a player that stopped reading."""
+        with self._state_lock:
+            return sum(len(buf) for buf in self._write_q)
+
     def write(self, buf: IOBuf, id_wait: Optional[int] = None,
               on_queued: Optional[Callable[[], None]] = None) -> int:
         """Queue the whole message; 0 on success, -1 when the connection
@@ -506,6 +515,11 @@ class Socket:
         self._release_sends()
         for cid in inflight:
             bthread_id.error(cid, self.error_code, error_text or "socket failed")
+        # a protocol whose state outlives a read (an RTMP session in its
+        # relay) ends it in a task: the caller may hold that state's locks
+        on_failed = self.__dict__.get("on_protocol_failed")
+        if on_failed is not None:
+            start_background(on_failed)
         if self._accepted and not self._recycled:
             # nothing dials an accepted connection again: its id goes
             self._recycled = True
@@ -547,7 +561,7 @@ class Socket:
                 self.lame_duck = False
                 self.error_code = 0
                 self.error_text = ""
-                self.read_portal = IOBuf()
+                self.read_portal = IOPortal()
                 self.matched_protocol = None
                 # what a protocol kept for the old connection (HTTP's
                 # ids in request order, h2's connection) does not hold

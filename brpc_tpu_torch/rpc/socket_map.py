@@ -72,6 +72,23 @@ class SocketMap:
             self._map[key] = entry
             return sid
 
+    def find(self, ep: Optional[EndPoint] = None,
+             key: Optional[SocketMapKey] = None) -> Optional[int]:
+        """The socket id shared under ``key`` (or ``make_key(ep)``), or
+        None; takes no reference."""
+        if key is None:
+            if ep is None:
+                raise ValueError("find() needs an endpoint or a key")
+            key = make_key(ep)
+        with self._lock:
+            entry = self._map.get(key)
+            return entry.sid if entry else None
+
+    def count(self) -> int:
+        """Keys with a shared socket."""
+        with self._lock:
+            return len(self._map)
+
     def remove(self, key: SocketMapKey, expected_sid: Optional[int] = None):
         """Drop one reference; recycle the socket at zero. With
         ``expected_sid``, only when that is still the key's socket."""

@@ -3,8 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --peer`` is the second process of phases 6, 8,
-9, 10, 12, 13, 14, 15 and 16, and ``--peer --tls`` that of phase 17; the
-script starts it itself.)
+9, 10, 12, 13, 14, 15, 16 and 18, and ``--peer --tls`` that of phase 17;
+the script starts it itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -259,6 +259,37 @@ unavailable, or when the port is not beside it:
             interpreter (nothing of jax, brpc_tpu or protobuf) and serves
             an nshead call there. The device endpoints, arena and pool at
             rest, the peer's card memory back; the peer exits 0.
+18. rtmp — one ``--peer`` whose plaintext one port also serves an
+            ``RtmpService``. (a) One 1080p30 live stream as Twitch's
+            broadcasting guidelines set it (video 6,000 kbit/s, 30 frames/s,
+            a keyframe every 2 s and about 8 inter frames in size; AAC 160
+            kbit/s at 44.1 kHz), payloads from the seeded generator behind
+            real FLV AVC and AAC tag headers, ``onMetaData`` and both
+            sequence headers first, paced in real time for 10 s (300 video
+            and 431 audio frames): a port ``RtmpClient`` publishes it into
+            the peer over the digest handshake; 8 players play it there; an
+            edge server here pulls it by ``pull_into_service`` (digest) and
+            serves 4 more; one player joins the peer 5 s late. Meanwhile a
+            plain channel pushes the activations (8 MiB) to the peer's card
+            once a second and pulls them back. Every player gets every
+            frame bit-equal and in order, the late joiner the metadata and
+            both sequence headers before its first live frame; every pull
+            lands on the card byte-identical; printed: the relay's latency
+            from the publisher's send to each player's receipt on this
+            host's clock, median and p99, origin and edge players apart;
+            messages and bytes per player against those sent; the pushes'
+            ms a round beside phase 6's wire round. (b) One player of a
+            second stream stops reading while its publisher bursts 64
+            keyframes of 256 KiB: the peer fails its socket once its backlog
+            passes 8 MiB, the other two players get every frame; after every
+            client closes, the peer's streams and ``rtmp_sessions`` are back
+            at rest, its endpoints and pool at rest, the wire lane moved by
+            the pushes made, its card memory back. (c)
+            ``IOBuf.device_arrays`` of a chain holding two card tensors is
+            their storage (``data_ptr`` equal); ``cut_into_file_descriptor``
+            of it into a pipe writes their bytes. (d) ``python -m
+            brpc_tpu_torch.examples.rtmp_relay``, started with the phase,
+            exits 0 with the reference's lines. The peer exits 0.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -294,6 +325,7 @@ from brpc_tpu_torch import rpcz
 from brpc_tpu_torch import mcpack2pb
 from brpc_tpu_torch.builtin.profilers import cuda_trace
 from brpc_tpu_torch.butil import flags
+from brpc_tpu_torch.butil.iobuf import IOBuf
 from brpc_tpu_torch.butil.recordio import RecordReader
 from brpc_tpu_torch.entry import dryrun_multichip
 from brpc_tpu_torch.examples import (
@@ -342,12 +374,15 @@ from brpc_tpu_torch.rpc import (
     stream_create,
 )
 from brpc_tpu_torch.rpc import (
+    amf,
     cuda_ipc_transfer,
     errors,
     esp_protocol,
     h2_protocol,
     mongo,
     rpc_dump,
+    rtmp_client,
+    rtmp_protocol,
     trackme,
 )
 from brpc_tpu_torch.rpc.authenticator import HmacAuthenticator
@@ -795,6 +830,18 @@ class SmokePeer(Service):
         eps = [s.app_state for s in conns if s.app_state is not None]
         push = cntl.server.method_statuses()["TensorStore.Push"]
         rec = push.latency_recorder
+        relay = cntl.server.options.rtmp_service
+        if relay is not None:
+            with relay._lock:
+                rtmp = {n: {"players": len(st.players),
+                            "publisher": st.publisher is not None}
+                        for n, st in relay._streams.items()}
+            rtmp = {"streams": rtmp,
+                    "sessions": find_exposed("rtmp_sessions").get_value(),
+                    "relayed": find_exposed(
+                        "rtmp_relayed_messages").get_value()}
+        else:
+            rtmp = None
         with self.store._lock:
             contents = {n: [str(t.device) for t in ts]
                         for n, ts in self.store._store.items()}
@@ -826,6 +873,7 @@ class SmokePeer(Service):
                    if getattr(s, "h2_conn", None) is not None],
             "echo_timeouts_ms": SmokeEcho.timeouts_ms,
             "side_ports": self.side_ports,
+            "rtmp": rtmp,
             "relay_stored": (sorted(self.relay_store._store)
                              if self.relay_store is not None else None),
             "rpcz": {"server_pushes": server_pushes, "max_spans": max_spans,
@@ -964,7 +1012,8 @@ def peer_main(tls: bool = False) -> int:
         num_threads=PEER_THREADS, redis_service=DictRedisService(),
         memcache_service=MemcacheService(), thrift_service=smoke_thrift(),
         nshead_service=NsheadPbServiceAdaptor.for_method(
-            "EchoService.Echo"))
+            "EchoService.Echo"),
+        rtmp_service=None if tls else rtmp_protocol.RtmpService())
     side_servers = []
     if tls:
         cert, key = tls_pair()
@@ -4608,6 +4657,525 @@ def phase_tls(tag: str, gen, wire_round_s: float, legacy_seq: dict) -> dict:
     return result
 
 
+# -- phase 18: RTMP relayed live by the card server's port -------------------
+
+# Twitch's broadcasting guidelines, 1080p30: video 6,000 kbit/s at 30
+# frames/s with a keyframe every 2 s; AAC audio 160 kbit/s at 44.1 kHz
+STREAM_18 = "live1080"
+SECONDS_18 = 10
+FPS_18 = 30
+GOP_S_18 = 2
+VIDEO_BPS_18 = 6_000_000
+AUDIO_BPS_18 = 160_000
+AUDIO_RATE_18 = 44100
+AAC_SAMPLES_18 = 1024  # samples per AAC frame
+KEY_RATIO_18 = 8  # a keyframe is about 8 inter frames
+ORIGIN_PLAYERS_18 = 8
+EDGE_PLAYERS_18 = 4
+LATE_S_18 = 5.0
+PUSHES_18 = 10  # the activations pushed and pulled, one a second
+BURST_18 = (64, 256 << 10)  # 18b: keyframes, bytes each
+WAIT_18 = 30.0
+
+
+def stream_18(gen):
+    """The priming messages and the live messages of 18a, (type, ts ms,
+    payload), the live ones in send order; payloads from the seeded
+    generator behind real FLV AVC and AAC tag headers."""
+    per_gop = VIDEO_BPS_18 // 8 * GOP_S_18
+    inter = per_gop // (KEY_RATIO_18 + FPS_18 * GOP_S_18 - 1)
+    key = KEY_RATIO_18 * inter
+    audio = AUDIO_BPS_18 // 8 * AAC_SAMPLES_18 // AUDIO_RATE_18
+    n_video = SECONDS_18 * FPS_18
+    n_audio = -(-SECONDS_18 * AUDIO_RATE_18 // AAC_SAMPLES_18)
+    sizes = [key if i % (FPS_18 * GOP_S_18) == 0 else inter
+             for i in range(n_video)]
+    total = sum(sizes) + n_audio * audio + 64
+    raw = torch.randint(0, 256, (total,), dtype=torch.uint8,
+                        device=torch.device("cuda"), generator=gen)
+    raw = raw.cpu().numpy().tobytes()
+    pos = 0
+
+    def take(n):
+        nonlocal pos
+        pos += n
+        return raw[pos - n:pos]
+
+    sps, pps = b"\x67\x64\x00\x28" + take(20), b"\x68" + take(4)
+    avc_cfg = (b"\x17\x00\x00\x00\x00" + bytes([1, 0x64, 0, 0x28, 0xFF, 0xE1])
+               + struct.pack(">H", len(sps)) + sps + b"\x01"
+               + struct.pack(">H", len(pps)) + pps)
+    aac_cfg = b"\xaf\x00\x12\x10"  # AAC LC, 44.1 kHz, stereo
+    meta = amf.encode_many("onMetaData", {
+        "width": 1920.0, "height": 1080.0, "framerate": float(FPS_18),
+        "videodatarate": VIDEO_BPS_18 / 1e3, "videocodecid": 7.0,
+        "audiodatarate": AUDIO_BPS_18 / 1e3,
+        "audiosamplerate": float(AUDIO_RATE_18), "audiocodecid": 10.0,
+        "stereo": True})
+    priming = [(rtmp_protocol.MSG_DATA_AMF0, 0, meta),
+               (rtmp_protocol.MSG_VIDEO, 0, avc_cfg),
+               (rtmp_protocol.MSG_AUDIO, 0, aac_cfg)]
+    live = []
+    for i, n in enumerate(sizes):
+        nal = (b"\x65" if n == key else b"\x41") + take(n - 10)
+        live.append((round(i * 1000 / FPS_18), 0, i, (
+            rtmp_protocol.MSG_VIDEO,
+            (b"\x17" if n == key else b"\x27") + b"\x01\x00\x00\x00"
+            + struct.pack(">I", len(nal)) + nal)))
+    for j in range(n_audio):
+        live.append((round(j * AAC_SAMPLES_18 * 1000 / AUDIO_RATE_18), 1, j,
+                     (rtmp_protocol.MSG_AUDIO, b"\xaf\x01" + take(audio - 2))))
+    live.sort()
+    return priming, [(t, ts, p) for ts, _, _, (t, p) in live]
+
+
+class Player18:
+    """A port RtmpClient playing a stream: each message is held against
+    the stream as it arrives (the three priming messages first, then the
+    live ones bit-equal and in order from wherever it joined), and each
+    live message's arrival time is kept."""
+
+    def __init__(self, port: int, name: str, priming, live):
+        self.priming, self.live = priming, live
+        self.index = {(t, ts): i for i, (t, ts, _) in enumerate(live)}
+        self.primed = 0
+        self.first = self.next = None
+        self.arrived = {}
+        self.bytes = 0
+        self.errors = []
+        self.client = rtmp_client.RtmpClient("127.0.0.1", port).connect()
+        self.client.start_reader()
+        self.client.create_stream().play(name, self.on_media)
+
+    def on_media(self, msg_type, ts, payload):
+        now = time.perf_counter()
+        if self.primed < len(self.priming):
+            if (msg_type, payload) != self.priming[self.primed][::2]:
+                self.errors.append(f"message {self.primed} is not the "
+                                   f"priming message (type {msg_type})")
+            self.primed += 1
+            return
+        i = self.next if self.next is not None else self.index.get(
+            (msg_type, ts))
+        if i is None or i >= len(self.live) or \
+                self.live[i] != (msg_type, ts, payload):
+            self.errors.append(f"live message {i}: type {msg_type} ts {ts} "
+                               f"{len(payload)} B out of order or changed")
+            return
+        if self.first is None:
+            self.first = i
+        self.next = i + 1
+        self.arrived[i] = now
+        self.bytes += len(payload)
+
+    def done(self) -> bool:
+        return self.next == len(self.live) or bool(self.errors)
+
+    def close(self):
+        self.client.close()
+
+
+def _rtmp_peer(ctl) -> dict:
+    return peer_control(ctl, "state")["rtmp"]
+
+
+def rtmp_pushes(plain, ctl, act, t0: float, out: dict):
+    """18a's pushes: the activations to the peer's card by the wire lane
+    and back, one round a second."""
+    client = TensorClient(plain)
+    dev = torch.device("cuda")
+    rounds = []
+    for r in range(PUSHES_18):
+        time.sleep(max(0.0, t0 + r - time.perf_counter()))
+        name = f"rtmp18-{r}"
+        sent0 = dt.lane_counters()
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        cntl, resp = client.push(name, [act])
+        check(not cntl.failed() and resp.ok,
+              f"18a: {name} push: {cntl.error_text}")
+        pcntl, got = client.pull(name, device=dev)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - s)
+        check(not pcntl.failed() and got is not None,
+              f"18a: {name} pull: {pcntl.error_text}")
+        moved = sorted(k for k, v in dt.lane_counters().items()
+                       if v != sent0.get(k))
+        check(moved == ["wire"], f"18a: {name} took {moved}")
+        check(got[0].is_cuda and torch.equal(u8(got[0]), u8(act)),
+              f"18a: {name}: the pulled bytes differ")
+        del got
+    out["rounds"] = rounds
+
+
+def _latency_ms(players, sent_at, live) -> dict:
+    video = [i for i, m in enumerate(live)
+             if m[0] == rtmp_protocol.MSG_VIDEO]
+    lat = [p.arrived[i] - sent_at[i] for p in players for i in video
+           if i in p.arrived]
+    return {"median_ms": _ms(lat), "p99_ms": _p99(lat), "samples": len(lat)}
+
+
+def rtmp_live(port: int, ctl, plain, act, gen, wire_round_s: float,
+              tag: str) -> tuple:
+    """18a: the stream through the peer's port to 8 players there, 4 at an
+    edge here that pulls it over the digest handshake, and one that joins
+    5 s late, while the activations go to the peer's card and back."""
+    priming, live = stream_18(gen)
+    sent_bytes = sum(len(p) for _, _, p in live)
+    pub = rtmp_client.RtmpClient("127.0.0.1", port).connect()
+    check(pub.digest_mode, "18a: the publisher's handshake was not digest")
+    stream = pub.create_stream().publish(STREAM_18)
+    for t, ts, payload in priming:
+        pub.sess.send_message(t, ts, payload, stream_id=stream.stream_id,
+                              csid=4)
+    _wait(lambda: _rtmp_peer(ctl)["streams"].get(STREAM_18, {}).get(
+        "publisher"), WAIT_18, "18a: the peer's stream published")
+    edge_svc = rtmp_protocol.RtmpService()
+    edge = Server(ServerOptions(num_threads=PEER_THREADS,
+                                has_builtin_services=False,
+                                rtmp_service=edge_svc))
+    check(edge.start("127.0.0.1:0") == 0, "18a: edge server start")
+    players, late = [], []
+    puller = None
+    try:
+        puller = rtmp_client.pull_into_service(edge_svc, STREAM_18,
+                                               "127.0.0.1", port)
+        check(puller.digest_mode, "18a: the edge pull was not digest")
+        origin = [Player18(port, STREAM_18, priming, live)
+                  for _ in range(ORIGIN_PLAYERS_18)]
+        edge_players = [Player18(edge.listen_endpoint.port, STREAM_18,
+                                 priming, live)
+                        for _ in range(EDGE_PLAYERS_18)]
+        players = origin + edge_players
+        _wait(lambda: all(p.primed == 3 for p in players), WAIT_18,
+              "18a: every player primed")
+        sent_at = {}
+        pushes = {}
+        t0 = time.perf_counter()
+        pusher = threading.Thread(
+            target=_guarded, args=(rtmp_pushes, pushes, plain, ctl, act,
+                                   t0 + 0.5, pushes))
+        joiner = threading.Thread(target=_guarded, args=(
+            lambda: (time.sleep(max(0.0, t0 + LATE_S_18
+                                    - time.perf_counter())),
+                     late.append(Player18(port, STREAM_18, priming, live))),
+            pushes))
+        pusher.start()
+        joiner.start()
+        for i, (t, ts, payload) in enumerate(live):
+            time.sleep(max(0.0, t0 + ts / 1e3 - time.perf_counter()))
+            sent_at[i] = time.perf_counter()
+            (stream.send_video if t == rtmp_protocol.MSG_VIDEO
+             else stream.send_audio)(payload, ts)
+        streamed_s = time.perf_counter() - t0
+        for th in (pusher, joiner):
+            th.join(WAIT_18 + 60)
+            check(not th.is_alive(), "18a: a helper thread hangs")
+        check("error" not in pushes, f"18a: {pushes.get('error')}")
+        players += late
+        _wait(lambda: all(p.done() for p in players), WAIT_18,
+              "18a: every player at the stream's end")
+        for k, p in enumerate(players):
+            check(not p.errors, f"18a: player {k}: {p.errors[:3]}")
+        full = players[:ORIGIN_PLAYERS_18 + EDGE_PLAYERS_18]
+        for k, p in enumerate(full):
+            check(p.first == 0 and p.next == len(live)
+                  and p.bytes == sent_bytes,
+                  f"18a: player {k} got {p.next} messages, {p.bytes} B of "
+                  f"{len(live)}, {sent_bytes} B")
+        lp = late[0]
+        check(lp.primed == 3 and lp.first is not None and lp.first > 0
+              and lp.next == len(live),
+              f"18a: the late joiner: primed {lp.primed}, live from "
+              f"{lp.first} to {lp.next}")
+        late_video = sum(1 for i in range(lp.first, len(live))
+                         if live[i][0] == rtmp_protocol.MSG_VIDEO)
+        st = peer_control(ctl, "state")
+        for r in range(PUSHES_18):
+            check(st["contents"][f"rtmp18-{r}"][0].startswith("cuda"),
+                  f"18a: rtmp18-{r} is not on the peer's card")
+        n_video = sum(1 for m in live if m[0] == rtmp_protocol.MSG_VIDEO)
+        out = {
+            "video_frames": n_video, "audio_frames": len(live) - n_video,
+            "bytes_sent": sent_bytes, "streamed_s": round(streamed_s, 3),
+            "origin": _latency_ms(origin, sent_at, live),
+            "edge": _latency_ms(edge_players, sent_at, live),
+            "per_player": [[p.next - p.first, p.bytes] for p in full],
+            "late": {"from_message": lp.first, "video_frames": late_video,
+                     "bytes": lp.bytes},
+            "push_ms_per_round": _ms(pushes["rounds"]),
+            "push_p99_ms": _p99(pushes["rounds"]),
+            "plaintext_wire_ms_per_round": round(wire_round_s * 1e3, 3),
+            "peer_relayed": st["rtmp"]["relayed"]}
+        print(f"rtmp/18a: one 1080p30 stream ({VIDEO_BPS_18 // 1000} kbit/s "
+              f"video, a keyframe every {GOP_S_18} s; AAC "
+              f"{AUDIO_BPS_18 // 1000} kbit/s at {AUDIO_RATE_18} Hz) paced "
+              f"for {SECONDS_18} s ({streamed_s:.3f} s): {n_video} video + "
+              f"{len(live) - n_video} audio frames, {sent_bytes} B, through "
+              f"the peer's one port to {ORIGIN_PLAYERS_18} players there and "
+              f"{EDGE_PLAYERS_18} at an edge here pulling over the digest "
+              f"handshake, every frame bit-equal and in order: each of them "
+              f"{len(live)} messages, {sent_bytes} B of {sent_bytes} B; "
+              f"relay latency, send to receipt on this host's clock, origin "
+              f"median {out['origin']['median_ms']} ms p99 "
+              f"{out['origin']['p99_ms']} ms, edge median "
+              f"{out['edge']['median_ms']} ms p99 {out['edge']['p99_ms']} ms;"
+              f" the late joiner (at {LATE_S_18} s) got the metadata and both "
+              f"sequence headers first, then {late_video} video frames from "
+              f"message {lp.first} on, in order {tag}")
+        print(f"rtmp/18a: meanwhile the activations {list(act.shape)} "
+              f"bfloat16 ({act.numel() * 2} B) went to the peer's card and "
+              f"back {PUSHES_18} times by the wire lane, bit-equal: median "
+              f"{out['push_ms_per_round']} ms a round, p99 "
+              f"{out['push_p99_ms']} ms (phase 6's wire round in this run: "
+              f"{out['plaintext_wire_ms_per_round']} ms) {tag}")
+        return out, [pub, puller] + [p.client for p in players], edge
+    except BaseException:
+        for c in [pub, puller] + [p.client for p in players + late]:
+            if c is not None:
+                c.close()
+        edge.stop()
+        raise
+
+
+def _guarded(fn, out: dict, *args):
+    try:
+        fn(*args)
+    except Exception as e:  # read by the caller after the join
+        out["error"] = repr(e)
+
+
+def rtmp_shed(port: int, ctl, gen, tag: str) -> tuple:
+    """18b: one player stops reading while the publisher bursts 64
+    keyframes of 256 KiB: it is shed once its backlog passes 8 MiB, the
+    other players get every frame."""
+    name = "burst18"
+    n, size = BURST_18
+    raw = torch.randint(0, 256, (size,), dtype=torch.uint8,
+                        device=torch.device("cuda"), generator=gen)
+    frame = b"\x17\x01\x00\x00\x00" + raw.cpu().numpy().tobytes()[5:]
+    live = [(rtmp_protocol.MSG_VIDEO, i * 33, frame) for i in range(n)]
+    pub = rtmp_client.RtmpClient("127.0.0.1", port).connect()
+    clients = [pub]
+    conn = None
+    try:
+        stream = pub.create_stream().publish(name)
+        conn, stalled = rtmp_protocol.rtmp_client_connect("127.0.0.1", port)
+        stalled.send_command("createStream", 2.0, None)
+        stalled.send_command("play", 4.0, None, name, stream_id=1)
+        check(stalled.pump_until(lambda s: any(
+            c[0] == "onStatus" and c[3]["code"] == "NetStream.Play.Start"
+            for c in s.commands()), timeout=WAIT_18),
+            "18b: the stalled player's play")
+        good = [Player18(port, name, [], live) for _ in range(2)]
+        clients += [p.client for p in good]
+        _wait(lambda: _rtmp_peer(ctl)["streams"][name]["players"] == 3,
+              WAIT_18, "18b: three players at the peer")
+        t0 = time.perf_counter()
+        for _, ts, payload in live:
+            stream.send_video(payload, ts)
+        _wait(lambda: all(p.done() for p in good), WAIT_18,
+              "18b: the good players at the burst's end")
+        took = time.perf_counter() - t0
+        for p in good:
+            check(not p.errors and p.first == 0 and p.next == n,
+                  f"18b: a good player got {p.next} of {n}: {p.errors[:3]}")
+        _wait(lambda: _rtmp_peer(ctl)["streams"][name]["players"] == 2,
+              WAIT_18, "18b: the stalled player shed at the peer")
+        conn.settimeout(WAIT_18)
+        read = 0
+        while chunk := conn.recv(1 << 20):  # to the peer's close
+            read += len(chunk)
+        limit = 8 << 20
+        check(read < n * size - limit,
+              f"18b: the stalled player read {read} B of {n * size} B")
+        print(f"rtmp/18b: {n} keyframes of {size} B burst in {took:.3f} s "
+              f"with one of three players not reading: it was shed (its "
+              f"socket failed at the peer, then closed) after reading "
+              f"{read} B of {n * size} B, the backlog bound being {limit} B;"
+              f" the other two got all {n} bit-equal {tag}")
+        return {"burst_s": round(took, 3), "stalled_read": read}, clients
+    except BaseException:
+        for c in clients:
+            c.close()
+        raise
+    finally:
+        if conn is not None:
+            conn.close()
+
+
+def rtmp_card_iobuf(gen, tag: str):
+    """18c: IOBuf.device_arrays returns the card tensors of a chain as
+    the same storage; cut_into_file_descriptor writes their bytes."""
+    dev = torch.device("cuda")
+    a = torch.randint(0, 256, (1 << 20,), dtype=torch.uint8, device=dev,
+                      generator=gen)
+    b = torch.randn((512, 1024), dtype=torch.bfloat16, device=dev,
+                    generator=gen)
+    buf = IOBuf(b"head")
+    buf.append_device_array(a)
+    buf.append_device_array(b)
+    buf.append(b"tail")
+    arrays = buf.device_arrays()
+    check(len(arrays) == 2 and all(x.is_cuda for x in arrays)
+          and arrays[0].data_ptr() == a.data_ptr()
+          and arrays[1].data_ptr() == b.data_ptr(),
+          "18c: device_arrays is not the card tensors' storage")
+    want = (b"head" + u8(a).cpu().numpy().tobytes()
+            + u8(b).cpu().numpy().tobytes() + b"tail")
+    r, w = os.pipe()
+    got = []
+
+    def drain():
+        while chunk := os.read(r, 1 << 20):
+            got.append(chunk)
+
+    reader = threading.Thread(target=drain)
+    reader.start()
+    try:
+        while not buf.empty():
+            buf.cut_into_file_descriptor(w)
+    finally:
+        os.close(w)
+        reader.join(WAIT_18)
+        os.close(r)
+    check(b"".join(got) == want, "18c: the pipe's bytes differ")
+    print(f"rtmp/18c: IOBuf.device_arrays of a chain holding two card "
+          f"tensors ({a.numel()} B uint8, {b.numel() * 2} B bfloat16) is "
+          f"their storage (data_ptr equal); cut_into_file_descriptor into "
+          f"a pipe wrote {len(want)} B, the tensors' bytes between the host "
+          f"blocks {tag}")
+
+
+def rtmp_example_start():
+    """18d: the rtmp_relay example as a user runs it, started at once so
+    that its interpreter and CUDA start while the rest of the phase runs
+    (its own servers take ports of their own); a thread keeps its output
+    and the time it took."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "brpc_tpu_torch.examples.rtmp_relay"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    box = {}
+
+    def run():
+        box["out"], box["err"] = proc.communicate()
+        box["s"] = time.perf_counter() - t0
+
+    waiter = threading.Thread(target=run, daemon=True)
+    waiter.start()
+    return proc, waiter, box
+
+
+def rtmp_example_finish(started, tag: str) -> float:
+    proc, waiter, box = started
+    waiter.join(180)
+    if waiter.is_alive():
+        proc.kill()
+        waiter.join(10)
+        check(False, "18d: rtmp_relay did not exit within 180 s")
+    out, err, took = box["out"], box["err"], box["s"]
+    lines = out.splitlines()
+    want = (r"rtmp server on rtmp://127\.0\.0\.1:\d+/live",
+            r"relayed 5 video frames; FLV dump = \d+ bytes, 6 tags",
+            r"TS segment = \d+ packets, 5 PES demuxed",
+            r"edge server relayed \d+ frames pulled from the origin "
+            r"\(digest handshake\)", "OK")
+    check(proc.returncode == 0 and len(lines) == len(want) and all(
+        re.fullmatch(p, line) for p, line in zip(want, lines)),
+        f"18d: rtmp_relay exited {proc.returncode}: {out!r} {err[-2000:]!r}")
+    print(f"rtmp/18d: python -m brpc_tpu_torch.examples.rtmp_relay, "
+          f"started with the phase, exited 0 in {took:.1f} s with the "
+          f"reference's {len(want)} lines {tag}")
+    return took
+
+
+def phase_rtmp(tag: str, gen, wire_round_s: float) -> dict:
+    """18: RTMP relayed live by a --peer's one port while pushes land on
+    its card; a stalled player shed; IOBuf's card half; the example."""
+    t_start = time.perf_counter()
+    example = rtmp_example_start()
+    proc, port = start_peer()
+    ctl = plain = None
+    clients, edge = [], None
+    result = {}
+    try:
+        target = f"127.0.0.1:{port}"
+        ctl = Channel()
+        check(ctl.init(target) == 0, "18: control channel init")
+        plain = Channel()
+        check(plain.init(target) == 0, "18: plain channel init")
+        peer_control(ctl, "to_card", on=True)
+        act = torch.randn((BATCH, SEQ, BIG.d_model), dtype=torch.bfloat16,
+                          device=torch.device("cuda"), generator=gen)
+        client = TensorClient(plain)
+        check(not client.push("warm", [act])[0].failed(), "18: warm push")
+        check(not client.pull("warm", device="cuda")[0].failed(),
+              "18: warm pull")
+        st = peer_control(ctl, "reset")
+        peer0, rtmp0 = st["memory_allocated"], st["rtmp"]
+        check(rtmp0["streams"] == {}, f"18: the peer's relay {rtmp0}")
+        wire0 = st["lanes"]["wire"]
+        result["live"], clients, edge = rtmp_live(
+            port, ctl, plain, act, gen, wire_round_s, tag)
+        shed, more = rtmp_shed(port, ctl, gen, tag)
+        result["shed"] = shed
+        clients += more
+        for c in clients:
+            if c is not None:
+                c.close()
+        clients = []
+        edge.stop()
+        edge = None
+        _wait(lambda: _rtmp_peer(ctl)["streams"] == {} and _rtmp_peer(ctl)[
+            "sessions"] == rtmp0["sessions"], WAIT_18,
+            "18b: the peer's relay at rest after every client closed")
+        st = peer_control(ctl, "reset")
+        _peer_at_rest(st, "18")
+        _pool_full(st, "18")
+        check(st["lanes"]["wire"] - wire0 == PUSHES_18,
+              f"18: the peer answered {st['lanes']['wire'] - wire0} pulls "
+              f"by the wire lane, not {PUSHES_18}")
+        check(st["memory_allocated"] == peer0,
+              f"18: the peer's card memory {peer0} -> "
+              f"{st['memory_allocated']} B")
+        print(f"rtmp/18b: every client closed: the peer's streams "
+              f"{st['rtmp']['streams']}, rtmp_sessions "
+              f"{st['rtmp']['sessions']} (was {rtmp0['sessions']}), its "
+              f"endpoints and pool at rest, card memory back at "
+              f"{st['memory_allocated']} B {tag}")
+        rtmp_card_iobuf(gen, tag)
+        result["example_s"] = round(rtmp_example_finish(example, tag), 1)
+        example = None
+        for ch in (plain, ctl):
+            ch.close()
+        plain = ctl = None
+        rc = stop_peer(proc)
+        proc = None
+        check(rc == 0, f"18: the peer exited with code {rc}")
+    finally:
+        for c in clients:
+            if c is not None:
+                c.close()
+        if edge is not None:
+            edge.stop()
+        for ch in (plain, ctl):
+            if ch is not None:
+                ch.close()
+        if proc is not None:
+            stop_peer(proc)
+        if example is not None and example[0].poll() is None:
+            example[0].kill()
+            example[1].join(10)
+    result["seconds"] = round(time.perf_counter() - t_start, 1)
+    print(f"rtmp/18: the peer exited 0; phase took {result['seconds']} s "
+          f"{tag}")
+    print("rtmp " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4642,6 +5210,7 @@ def main() -> int:
     grpc = phase_grpc(tag, gen, wire_8mib / 1e6, examples["press"])
     legacy = phase_legacy(tag, gen, wire_8mib / 1e6, grpc, examples["press"])
     phase_tls(tag, gen, lanes["wire/8MiB-act"], legacy["sequential"])
+    phase_rtmp(tag, gen, lanes["wire/8MiB-act"])
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "

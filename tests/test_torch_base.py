@@ -8,12 +8,26 @@ Randomness is seeded the same way in both (numpy for the inputs, a
 ``random.Random`` of one seed for ``fast_rand``), and the clocks are
 fixed: a patched ``time`` in the timer and collector modules, and fixed
 ``now`` values for the SLO timeline. Nothing sleeps.
+
+The rest of the partly ported modules (ROADMAP A10) go the same way:
+``IOBufAppender``, ``IOBufCutter``, ``IOPortal`` on a pipe and a socket
+pair, ``append_user_data``, ``device_arrays`` (the port's tensors, the
+reference's arrays) and ``cut_into_file_descriptor``, the thread's
+block cache, bthread ids' ``create``, ``join`` and ``trylock``, the
+socket map's ``find`` and ``count``, a dispatcher's ``stop``, ``join``
+and ``remove_consumer``, and the endpoint's device coordinates. Their
+waits have deadlines; two of them (0.05 s and 0.2 s) wait for what must
+not come.
 """
+import os
 import random
+import socket
+import threading
 import types
 
 import numpy as np
 import pytest
+import torch
 
 from brpc_tpu import Status as RefTopStatus
 from brpc_tpu import bvar as ref_bvar
@@ -418,3 +432,261 @@ def test_slo_objective_and_engine_refusals():
     _both("slo", run)
     assert fleet.SloEngine is slo.SloEngine
     assert set(fleet.__all__) == {"SloEngine", "SloObjective", "hist"}
+
+
+# -- the rest of the partly ported modules (ROADMAP A10) ---------------------
+
+from brpc_tpu.bthread import id as ref_bthread_id  # noqa: E402
+from brpc_tpu.butil import endpoint as ref_endpoint  # noqa: E402
+from brpc_tpu.butil import iobuf as ref_iobuf  # noqa: E402
+from brpc_tpu.rpc import event_dispatcher as ref_dispatcher  # noqa: E402
+from brpc_tpu.rpc import socket_map as ref_socket_map  # noqa: E402
+from brpc_tpu_torch.bthread import id as bthread_id  # noqa: E402
+from brpc_tpu_torch.butil import endpoint, iobuf  # noqa: E402
+from brpc_tpu_torch.rpc import event_dispatcher  # noqa: E402
+from brpc_tpu_torch.rpc import socket_map  # noqa: E402
+
+PAIRS.update({"iobuf": (ref_iobuf, iobuf), "id": (ref_bthread_id, bthread_id),
+              "endpoint": (ref_endpoint, endpoint),
+              "socket_map": (ref_socket_map, socket_map),
+              "dispatcher": (ref_dispatcher, event_dispatcher)})
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_iobuf_appender_and_cutter(seed):
+    def run(m):
+        rng = random.Random(seed)
+        app = m.IOBufAppender()
+        for _ in range(40):
+            k = rng.randrange(4)
+            if k == 0:
+                app.push_back(rng.randrange(256))
+            elif k == 1:
+                app.append(bytes(rng.randrange(256)
+                                 for _ in range(rng.randrange(30))))
+            elif k == 2:
+                app.append("s" * rng.randrange(5))
+            else:
+                app.append(m.IOBuf(b"chained" * rng.randrange(3)))
+        buf = app.take()
+        out = [len(buf), len(app.take())]
+        cut = m.IOBufCutter(buf)
+        for _ in range(30):
+            k = rng.randrange(4)
+            if k == 0:
+                out.append(_outcome(cut.cut_uint32_be))
+            elif k == 1:
+                out.append(_outcome(cut.cut_uint64_be))
+            elif k == 2:
+                out.append(_outcome(lambda: cut.cutn(rng.randrange(9))))
+            else:
+                out.append(cut.peek_bytes(rng.randrange(6)))
+            out.append(cut.remaining())
+        return out
+
+    _both("iobuf", run)
+
+
+def test_iobuf_portal_reads_a_descriptor():
+    def run(m):
+        r, w = os.pipe()
+        os.set_blocking(r, False)
+        try:
+            rng = random.Random(3)
+            data = bytes(rng.randrange(256) for _ in range(20000))
+            p = m.IOPortal()
+            out = [_outcome(lambda: p.append_from_file_descriptor(r))]
+            os.write(w, data)
+            out.append(p.append_from_file_descriptor(r, 9000))
+            out.append(p.append_from_file_descriptor(r))
+            out.append(_outcome(lambda: p.append_from_file_descriptor(r)))
+            os.close(w)
+            w = None
+            out.append(p.append_from_file_descriptor(r))  # EOF
+            out.append(p.to_bytes() == data)
+            a, b = socket.socketpair()
+            with a, b:
+                b.sendall(data[:777])
+                out.append(p.append_from_socket(a))
+            out.append(len(p))
+            return out
+        finally:
+            os.close(r)
+            if w is not None:
+                os.close(w)
+
+    got = _both("iobuf", run)
+    assert got[0][0] == "BlockingIOError" and got[1:3] == [9000, 11000]
+
+
+def test_iobuf_user_data_device_arrays_and_fd_writes():
+    def run(m, arrays):
+        freed = []
+        buf = m.IOBuf(b"head")
+        buf.append_user_data(bytearray(b"user-memory"), deleter=freed.append,
+                             meta=7)
+        for a in arrays:
+            buf.append_device_array(a)
+        buf.append(b"tail")
+        ref = buf._refs[1]
+        out = [ref.block.meta, ref.block.kind]
+        ref.block.release()
+        ref.block.release()
+        out.append(freed)
+        out.append(len(buf.device_arrays()))
+        r, w = os.pipe()
+        try:
+            out.append(buf.cut_into_file_descriptor(w, 10))
+            out.append(buf.cut_into_file_descriptor(w))
+            out.append(buf.cut_into_file_descriptor(w))
+            out.append(os.read(r, 1 << 16))
+        finally:
+            os.close(r)
+            os.close(w)
+        return out, buf
+
+    rng = np.random.default_rng(4)
+    host = [rng.standard_normal((3, 5)).astype(np.float32),
+            rng.integers(0, 9, 7).astype(np.int32)]
+    ref_out, _ = run(ref_iobuf, host)
+    tensors = [torch.from_numpy(h.copy()) for h in host]
+    buf = iobuf.IOBuf()
+    for t in tensors:
+        buf.append_device_array(t)
+    assert all(a is t for a, t in zip(buf.device_arrays(), tensors))
+    port_out, _ = run(iobuf, tensors)
+    assert port_out[:2] == [7, iobuf.Block.USER]
+    assert port_out == ref_out
+    assert port_out[-1] == (b"headuser-memory" + b"".join(
+        h.tobytes() for h in host) + b"tail")
+
+
+def test_tls_block_cache():
+    def run(m):
+        m.release_tls_blocks()
+        b = m.share_tls_block()
+        out = [m.share_tls_block() is b, b.left_space()]
+        p = m.IOPortal()
+        r, w = os.pipe()
+        try:
+            os.write(w, b"x" * 5000)
+            p.append_from_file_descriptor(r)
+            out.append(b.left_space())
+            os.write(w, b"y" * 5000)
+            p.append_from_file_descriptor(r)
+        finally:
+            os.close(r)
+            os.close(w)
+        c = m.share_tls_block()
+        out += [c is b, c.left_space(), p.to_bytes() == b"x" * 5000 +
+                b"y" * 5000, len(m._tls_block_cache())]
+        seen = []
+        t = threading.Thread(target=lambda: seen.append(
+            m.share_tls_block() is not c))
+        t.start()
+        t.join(5)
+        m.release_tls_blocks()
+        out += seen + [len(m._tls_block_cache()), m.share_tls_block() is c]
+        return out
+
+    assert _both("iobuf", run) == [True, 8192, 3192, False, 6384, True, 1,
+                                   True, 0, False]
+
+
+def test_bthread_id_create_join_trylock():
+    def run(m):
+        seen = []
+        cid = m.create(data="d", on_error=lambda i, d, code, text: (
+            seen.append((d, code, text)), m.unlock(i)))
+        out = [m.trylock(cid), m.trylock(cid)]
+        out.append(m.error(cid, 5, "queued"))
+        m.unlock(cid)  # runs the queued error, which unlocks
+        out.append(list(seen))
+        out.append(m.join(cid, timeout=0.05))  # still alive
+        done = []
+        t = threading.Thread(target=lambda: done.append(m.join(cid, 5)))
+        t.start()
+        m.lock(cid)
+        m.unlock_and_destroy(cid)
+        t.join(5)
+        out += [done, m.join(cid), m.trylock(cid),
+                _outcome(lambda: m.trylock((1 << 60) | 1))]
+        return out
+
+    assert _both("id", run)[:2] == ["d", None]
+
+
+def test_socket_map_find_and_count():
+    def run(m, insert):
+        smap = m.SocketMap()
+        ep = PAIRS["endpoint"][0 if m is ref_socket_map else 1].EndPoint(
+            "127.0.0.1", 9)
+        keys = [m.make_key(ep), m.make_key(ep, protocol="h2:grpc")]
+        out = [smap.count(), smap.find(ep), smap.find(key=keys[1])]
+        sids = [insert(smap, ep, k) for k in keys + keys[:1]]
+        out += [smap.count(), sids[0] == sids[2],
+                smap.find(key=keys[0]) == sids[0],
+                smap.find(key=keys[1]) == sids[1]]
+        out.append(_outcome(smap.find))
+        for k in keys + keys[:1]:
+            smap.remove(key=k)
+        out += [smap.count(), smap.find(key=keys[0])]
+        return out
+
+    ref = run(ref_socket_map, lambda s, ep, k: s.insert(ep, key=k))
+    port = run(socket_map, lambda s, ep, k: s.insert(ep, k))
+    assert ref == port
+    # the default key is the port's tpu_std channel's, the reference's
+    # bare endpoint's: find(ep) reads each package's own default
+    assert socket_map.make_key(endpoint.EndPoint("h", 1))[2] == "tpu_std"
+
+
+def test_event_dispatcher_stop_join_and_remove_consumer():
+    def run(m):
+        d = m.EventDispatcher()
+        r, w = os.pipe()
+        os.set_blocking(r, False)
+        hits = threading.Event()
+
+        def on_readable():
+            try:
+                os.read(r, 64)
+            except BlockingIOError:
+                pass
+            hits.set()
+
+        try:
+            d.add_consumer(r, on_readable)
+            os.write(w, b"a")
+            out = [hits.wait(5)]
+            d.remove_consumer(r)
+            hits.clear()
+            marker = threading.Event()
+            d.add_epollout(w, marker.set)  # runs after the remove applied
+            out.append(marker.wait(5))
+            os.write(w, b"b")
+            out.append(hits.wait(0.2))
+            out.append(os.read(r, 64))  # the fd was left open
+            d.stop()
+            d.join(5)
+            out.append(d._thread.is_alive())
+            return out
+        finally:
+            os.close(r)
+            os.close(w)
+
+    assert _both("dispatcher", run) == [True, True, False, b"b", False]
+
+
+def test_endpoint_device_coordinates():
+    def run(m):
+        coord = m.DeviceCoord(1, 2, 3, 0)
+        ep = m.EndPoint.of_device(coord, 8000)
+        plain = m.EndPoint.parse("10.0.0.1:80")
+        moved = plain.with_device(coord)
+        return [str(ep), ep.is_ici(), plain.is_ici(), str(moved),
+                moved.is_ici(), moved == plain, str(m.EndPoint.parse(
+                    str(moved))), m.EndPoint.parse(str(moved)).is_ici()]
+
+    assert _both("endpoint", run)[:3] == ["0.0.0.0:8000/tpu:1.2.3.0", True,
+                                         False]

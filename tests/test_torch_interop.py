@@ -266,7 +266,8 @@ CLIENT_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "rpc.memcache_protocol", "rpc.thrift", "rpc.thrift_protocol",
     "mcpack2pb", "rpc.nshead_protocol", "rpc.authenticator",
     "rpc.legacy_nshead_family", "rpc.mongo", "rpc.mongo_protocol",
-    "rpc.esp_protocol", "rpc.proto.mapdemo", "mcpack2pb_gen")]
+    "rpc.esp_protocol", "rpc.proto.mapdemo", "mcpack2pb_gen", "rpc.amf",
+    "rpc.flv", "rpc.mpegts", "rpc.rtmp_protocol", "rpc.rtmp_client")]
 # the examples' and the tools' twins, each a program a user starts
 PROGRAM_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "examples.echo", "examples.asynchronous_echo",
@@ -279,6 +280,7 @@ PROGRAM_MODULES = [f"brpc_tpu_torch.{m}" for m in (
     "examples.parallel_echo", "examples.grpc_echo", "examples.redis_kv",
     "examples.memcache_kv", "examples.thrift_echo",
     "examples.legacy_pbrpc_echo", "examples.nshead_extension",
+    "examples.rtmp_relay",
     "tools.mcpack2pb_gen", "tools.rpc_press",
     "tools.rpc_replay", "tools.rpc_view", "tools.parallel_http", "tools.trackme_server",
     "rpc.trackme")]
