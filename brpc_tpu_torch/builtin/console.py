@@ -14,7 +14,7 @@ returns (status, content_type, body), or with extra headers a 4-tuple.
 Each page prints what the port has. Left out: the native runtime's
 sections of ``/status`` and ``/connections``, its ``/heap/native``
 and ``/growth/native`` profiles and the capture window of
-``/rpc_dump?seconds=N`` (the port has no native runtime: those answer
+``/rpc_dump?seconds=N`` (not ported yet, ROADMAP A12b: those answer
 the reference's "native runtime unavailable", and ``/rpc_dump`` shows
 the reference's status page without a native recorder), and the page of
 a module not ported yet: ``/fleet``.

@@ -13,8 +13,14 @@ one block after another. ``IOPortal`` is the IOBuf a socket reads into:
 ``ssl.SSLSocket``: a record at a time, the TLS layer's want-read and
 want-write are would-block), and ``append_from_file_descriptor``;
 ``cut_into_socket`` writes from the front. ``IOBufAppender`` and
-``IOBufCutter`` are the sequential writer and front parser. Left out:
-the read-arena seam (``set_block_allocator``, ROADMAP A12).
+``IOBufCutter`` are the sequential writer and front parser.
+
+``set_block_allocator`` is the blockmem_allocate seam: with a factory
+installed, appended bytes and plain-socket reads are staged into the
+blocks it gives (the device transport points it at a shared, page-locked
+HostArena: ``HostArena.install_as_iobuf_allocator``,
+``install_read_arena``); without one, an appended ``bytes`` object is
+kept as it is and a socket read becomes a block of its own.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ class Block:
     from its front; refs view only what was filled."""
 
     __slots__ = ("data", "size", "capacity", "kind", "deleter", "meta",
-                 "device_array")
+                 "device_array", "__weakref__")
 
     HOST = 0
     USER = 1  # caller-owned memory, handed to ``deleter`` on release
@@ -110,16 +116,43 @@ def _tls_block_cache() -> List[Block]:
     return cache
 
 
+# The blockmem_allocate seam (iobuf.cpp:163-168): a factory of fresh
+# writable blocks, or None. It returns None to fall back to a plain host
+# block (its memory exhausted).
+_block_allocator: Optional[Callable[[], Optional[Block]]] = None
+_alloc_gen = 0  # bumped at every switch; stamps each thread's cache
+
+
+def set_block_allocator(alloc: Optional[Callable[[], Optional[Block]]]):
+    """Install (or, with None, remove) the block factory. Every thread's
+    cached blocks from before the switch are dropped at its next use."""
+    global _block_allocator, _alloc_gen
+    _block_allocator = alloc
+    _alloc_gen += 1
+
+
+def _new_block() -> Block:
+    alloc = _block_allocator
+    if alloc is not None:
+        b = alloc()
+        if b is not None:
+            return b
+    return Block.writable()
+
+
 def share_tls_block() -> Block:
     """This thread's cached block with free space, a new one when the
     last is full."""
+    if getattr(_tls, "alloc_gen", None) != _alloc_gen:
+        _tls.blocks = []
+        _tls.alloc_gen = _alloc_gen
     cache = _tls_block_cache()
     while cache:
         b = cache[-1]
         if b.left_space() > 0:
             return b
         cache.pop()
-    b = Block.writable()
+    b = _new_block()
     cache.append(b)
     return b
 
@@ -170,11 +203,25 @@ class IOBuf:
             return
         if isinstance(data, str):
             data = data.encode()
-        elif not isinstance(data, bytes):
+        if _block_allocator is not None:
+            self._append_staged(memoryview(data).cast("B"))
+            return
+        if not isinstance(data, bytes):
             data = bytes(data)
         if data:
             b = Block(data)
             self._append_ref(BlockRef(b, 0, b.size))
+
+    def _append_staged(self, mv: memoryview):
+        """Copy into this thread's cached blocks (the allocator's)."""
+        pos, n = 0, len(mv)
+        while pos < n:
+            b = share_tls_block()
+            take = min(n - pos, b.left_space())
+            b.data[b.size: b.size + take] = mv[pos: pos + take]
+            self._append_ref(BlockRef(b, b.size, take))
+            b.size += take
+            pos += take
 
     def append_user_data(self, mem, deleter: Optional[Callable] = None,
                          meta: int = 0):
@@ -310,10 +357,35 @@ class IOPortal(IOBuf):
         come."""
         if isinstance(fd, ssl.SSLSocket):
             return self._append_from_tls(fd, max_bytes)
+        if _block_allocator is not None:
+            return self._recv_staged(fd, max_bytes)
         data = fd.recv(max_bytes)
         if data:
             self._append_ref(BlockRef(Block(data), 0, len(data)))
         return len(data)
+
+    def _recv_staged(self, fd, max_bytes: int) -> int:
+        """Read straight into this thread's cached blocks (the
+        allocator's), block after block."""
+        got = 0
+        while got < max_bytes:
+            b = share_tls_block()
+            want = min(b.left_space(), max_bytes - got)
+            try:
+                n = fd.recv_into(
+                    memoryview(b.data)[b.size: b.size + want], want)
+            except BlockingIOError:
+                if got == 0:
+                    raise
+                break
+            if not n:
+                break  # EOF: the bytes read so far first
+            self._append_ref(BlockRef(b, b.size, n))
+            b.size += n
+            got += n
+            if n < want:
+                break
+        return got
 
     def _append_from_tls(self, fd, max_bytes: int) -> int:
         got = 0

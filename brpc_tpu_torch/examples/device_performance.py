@@ -116,8 +116,8 @@ def main(argv=None) -> int:
         srv.stop()
 
     # The reference measures its native bulk data path here (streamed
-    # attachments through the C++ runtime); the port has no native
-    # runtime yet (ROADMAP A12).
+    # attachments through the C++ runtime); the port's native runtime
+    # does not carry that lane yet (ROADMAP A12b).
     print("native bulk lane unavailable: the port has no native runtime")
     return 0 if recorder.count() > 0 and errors.get_value() == 0 else 1
 

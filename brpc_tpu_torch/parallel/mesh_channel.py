@@ -11,8 +11,13 @@ one collective over a process group of the rank mesh:
     z   = mc.partition_call(fn, x)                # PartitionChannel
 
 Every participant calls each method with its own shard (dim 0 of the
-reference's global input). The host axis (``attach_host_cluster``,
-``host_parallel_call``) needs the native cluster and is not ported yet.
+reference's global input).
+
+The host axis goes native: ``attach_host_cluster`` binds a NativeCluster
+(rpc/native_cluster.py) whose backends are the peer hosts, and
+``host_parallel_call`` fans an RPC over them through the native fan-out
+core, the cross-host hop of a host x device mesh with no Python per
+sub-call.
 """
 from __future__ import annotations
 
@@ -25,13 +30,31 @@ from brpc_tpu_torch.parallel.world import RankMesh
 class MeshChannel:
     """One mesh axis treated as a set of N sub-channels."""
 
-    def __init__(self, mesh: RankMesh, axis: str):
+    def __init__(self, mesh: RankMesh, axis: str, host_cluster=None):
         if axis not in mesh.spec.shape:
             raise ValueError(f"axis {axis!r} not in mesh "
                              f"{tuple(mesh.spec.shape)}")
         self.mesh = mesh
         self.axis = axis
         self.n = mesh.size(axis)
+        self.host_cluster = host_cluster
+
+    # -- host axis (native fan-out) ---------------------------------------
+    def attach_host_cluster(self, cluster):
+        """Bind the host axis: a NativeCluster whose backends are the peer
+        hosts of this mesh slice."""
+        self.host_cluster = cluster
+        return self
+
+    def host_parallel_call(self, service_method: str, payload: bytes,
+                           timeout_ms: int = 1000, fail_limit: int = 0):
+        """ParallelChannel semantics over the host axis, natively: returns
+        (error_code, merged_bytes, error_text, failed_subcalls)."""
+        if self.host_cluster is None:
+            raise ValueError("no host cluster attached (attach_host_cluster)")
+        return self.host_cluster.parallel_call(service_method, payload,
+                                               timeout_ms=timeout_ms,
+                                               fail_limit=fail_limit)
 
     # -- ParallelChannel analog -------------------------------------------
     def parallel_call(self, fn: Callable, x, merger: Optional[str] = "add"):

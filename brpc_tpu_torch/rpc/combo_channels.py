@@ -14,9 +14,12 @@ Port of the Python path of brpc_tpu/rpc/combo_channels.py:
 * SelectiveChannel: each call goes to one sub-channel, the healthiest in
   turn, and fails over to another when it fails.
 
-``native=True`` raises ValueError: the reference runs these channels in
-its native C++ runtime then, which the port does not have (ROADMAP 3e).
-A SelectiveChannel carries a call's outbound tensors to the sub-channel
+With ``native=True`` a channel is built by ``init(naming_url, ...)`` and
+its server list, balancer, sub-calls and merge run in the port's native
+library (rpc/native_cluster.py): the native merge concatenates the
+successful sub-responses in sub-call order, which for serialized messages
+is MergeFrom, the default ResponseMerger, so the response is the Python
+path's. A SelectiveChannel carries a call's outbound tensors to the sub-channel
 it tries and hands the served connection and the response's tensors back
 to the caller's controller, so TensorClient works over it; the reference
 carries only the request attachment.
@@ -31,14 +34,51 @@ from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.channel import Channel, ChannelOptions
 from brpc_tpu_torch.rpc.controller import Controller
 
-_NATIVE = ("native=True runs the combo channels in the reference's native "
-           "C++ runtime, which this port does not have (ROADMAP 3e); use the "
-           "Python path")
+def _native_cluster_init(naming_url: str, lb_name: str,
+                         options: Optional[ChannelOptions],
+                         node_filter=None, name: str = ""):
+    from brpc_tpu_torch.rpc.native_cluster import NativeCluster
+
+    connect_ms = int(options.connect_timeout_ms) if options else 500
+    hc_ms = (int(options.health_check_interval_s * 1000)
+             if options is not None and options.health_check_interval_s > 0
+             else 100)
+    cluster = NativeCluster(lb=lb_name or "rr", connect_timeout_ms=connect_ms,
+                            health_check_ms=hc_ms, name=name)
+    cluster.watch(naming_url, node_filter)
+    return cluster
 
 
-def _refuse_native(native: bool):
-    if native:
-        raise ValueError(_NATIVE)
+def _native_call(cntl: Controller, request, response, done, verb):
+    """Run one native verb ``verb(payload, timeout_ms) -> (rc, body, err,
+    ...)``: inline without ``done``, else on a thread (the fan-out is
+    parallel natively already; the thread carries done's contract). The
+    body, the sub-responses concatenated, is parsed into ``response``."""
+    payload = request.SerializeToString() if request is not None else b""
+    timeout_ms = int(cntl.timeout_ms or 1000)
+    start = time.monotonic()
+
+    def run():
+        rc, body, err = verb(payload, timeout_ms)[:3]
+        if rc == 0:
+            if response is not None and body:
+                response.ParseFromString(body)
+        else:
+            cntl.set_failed(rc, err or errors.berror(rc))
+        cntl.latency_us = (time.monotonic() - start) * 1e6
+        if done is not None:
+            done(cntl)
+
+    if done is None:
+        run()
+    else:
+        threading.Thread(target=run, daemon=True).start()
+
+
+def _python_path_only(cluster, what: str):
+    if cluster is not None:
+        raise ValueError(f"a native {what} fans to its naming service's "
+                         f"servers; add_channel is the Python path")
 
 
 def _sub_controller(cntl: Controller) -> Controller:
@@ -102,22 +142,50 @@ def _call(channel, method: str, request, response_class,
 
 class ParallelChannel:
     def __init__(self, fail_limit: int = -1, native: bool = False):
-        _refuse_native(native)
         self._subs: List[Tuple[Channel, Optional[CallMapper],
                                Optional[ResponseMerger]]] = []
         self.fail_limit = fail_limit
+        self.native = native
+        self._cluster = None
+
+    def init(self, naming_url: str, lb_name: str = "rr",
+             options: Optional[ChannelOptions] = None) -> int:
+        """The native path: every server the naming url resolves to is a
+        sub-channel."""
+        if not self.native:
+            raise ValueError("init(naming_url) needs native=True; the "
+                             "Python path uses add_channel()")
+        self._cluster = _native_cluster_init(naming_url, lb_name, options,
+                                             name="parallel")
+        return 0
 
     def add_channel(self, channel: Channel,
                     call_mapper: Optional[CallMapper] = None,
                     response_merger: Optional[ResponseMerger] = None):
+        _python_path_only(self._cluster, "ParallelChannel")
         self._subs.append((channel, call_mapper, response_merger))
 
     @property
     def channel_count(self) -> int:
+        if self._cluster is not None:
+            return self._cluster.backend_count()
         return len(self._subs)
+
+    def stop(self):
+        if self._cluster is not None:
+            self._cluster.close()
+
+    def _native_verb(self, method: str):
+        fail_limit = self.fail_limit if self.fail_limit > 0 else 0
+        return lambda payload, timeout_ms: self._cluster.parallel_call(
+            method, payload, timeout_ms=timeout_ms, fail_limit=fail_limit)
 
     def call_method(self, method: str, cntl: Controller, request, response,
                     done: Optional[Callable] = None):
+        if self._cluster is not None:
+            _native_call(cntl, request, response, done,
+                         self._native_verb(method))
+            return
         n = len(self._subs)
         if n == 0:
             cntl.set_failed(errors.EINVAL, "no sub channels")
@@ -205,10 +273,20 @@ class PartitionChannel(ParallelChannel):
 
     def __init__(self, fail_limit: int = -1, native: bool = False):
         super().__init__(fail_limit, native=native)
+        self._partition_count = 0
 
     def init(self, partition_count: int, naming_url: str, lb_name: str = "rr",
              parser: Optional[PartitionParser] = None,
              options: Optional[ChannelOptions] = None) -> int:
+        if self.native:
+            # the native core groups backends by the default "i/n" grammar
+            if parser is not None and type(parser) is not PartitionParser:
+                raise ValueError("a native PartitionChannel reads the default "
+                                 "'i/n' tags only")
+            self._partition_count = partition_count
+            self._cluster = _native_cluster_init(naming_url, lb_name, options,
+                                                 name="partition")
+            return 0
         parser = parser or PartitionParser()
         for part in range(partition_count):
             ch = Channel(options)
@@ -224,7 +302,14 @@ class PartitionChannel(ParallelChannel):
             self.add_channel(ch)
         return 0
 
+    def _native_verb(self, method: str):
+        fail_limit = self.fail_limit if self.fail_limit > 0 else 0
+        return lambda payload, timeout_ms: self._cluster.partition_call(
+            method, payload, timeout_ms=timeout_ms,
+            partitions=self._partition_count, fail_limit=fail_limit)
+
     def stop(self):
+        super().stop()
         for ch, _, _ in self._subs:
             ch.close()
 
@@ -235,8 +320,9 @@ class DynamicPartitionChannel:
     members are the schemes) and fans out to its partitions."""
 
     def __init__(self, fail_limit: int = -1, native: bool = False):
-        _refuse_native(native)
         self.fail_limit = fail_limit
+        self.native = native
+        self._cluster = None
         self._schemes: Dict[int, PartitionChannel] = {}
         self._dynlb = None
 
@@ -245,10 +331,19 @@ class DynamicPartitionChannel:
              options: Optional[ChannelOptions] = None,
              schemes: Optional[List[int]] = None) -> int:
         """``schemes``: the partition counts to serve; without it, the
-        counts found in the tags of a first resolution."""
+        counts found in the tags of a first resolution. The native path
+        reads the live schemes from the tags at every naming refresh, so
+        it ignores ``schemes``."""
         from brpc_tpu_torch.rpc.load_balancer import create_load_balancer
         from brpc_tpu_torch.rpc.naming_service import _ns_registry
 
+        if self.native:
+            if parser is not None and type(parser) is not PartitionParser:
+                raise ValueError("a native DynamicPartitionChannel reads the "
+                                 "default 'i/n' tags only")
+            self._cluster = _native_cluster_init(naming_url, "_dynpart",
+                                                 options, name="dynpart")
+            return 0
         parser = parser or PartitionParser()
         if not schemes:
             scheme, _, path = naming_url.partition("://")
@@ -284,6 +379,18 @@ class DynamicPartitionChannel:
 
     def call_method(self, method: str, cntl: Controller, request, response,
                     done: Optional[Callable] = None):
+        if self._cluster is not None:
+            fail_limit = self.fail_limit if self.fail_limit > 0 else 0
+
+            def verb(payload, timeout_ms):
+                out = self._cluster.dynpart_call(
+                    method, payload, timeout_ms=timeout_ms,
+                    fail_limit=fail_limit)
+                cntl.partition_count = out[4]
+                return out
+
+            _native_call(cntl, request, response, done, verb)
+            return
         total = (self._dynlb.select_server() if self._dynlb is not None
                  else None)
         pc = self._schemes.get(total) if total is not None else None
@@ -299,6 +406,8 @@ class DynamicPartitionChannel:
         return _call(self, method, request, response_class, timeout_ms)
 
     def stop(self):
+        if self._cluster is not None:
+            self._cluster.close()
         for pc in self._schemes.values():
             pc.stop()
 
@@ -308,20 +417,40 @@ class SelectiveChannel:
     call is retried on another, up to ``max_retry`` times."""
 
     def __init__(self, max_retry: int = 2, native: bool = False):
-        _refuse_native(native)
         self._channels: List[Channel] = []
         self._health: Dict[int, int] = {}  # index -> consecutive failures
         self._index = 0
         self._lock = threading.Lock()
         self.max_retry = max_retry
+        self.native = native
+        self._cluster = None
+
+    def init(self, naming_url: str, lb_name: str = "rr",
+             options: Optional[ChannelOptions] = None) -> int:
+        """The native path: the balancer and the failover run in the
+        native cluster (a retry skips the backends tried, breakers fail
+        dead peers fast)."""
+        if not self.native:
+            raise ValueError("init(naming_url) needs native=True; the "
+                             "Python path uses add_channel()")
+        self._cluster = _native_cluster_init(naming_url, lb_name, options,
+                                             name="selective")
+        return 0
+
+    def stop(self):
+        if self._cluster is not None:
+            self._cluster.close()
 
     def add_channel(self, channel: Channel) -> int:
+        _python_path_only(self._cluster, "SelectiveChannel")
         with self._lock:
             self._channels.append(channel)
             return len(self._channels) - 1
 
     @property
     def channel_count(self) -> int:
+        if self._cluster is not None:
+            return self._cluster.backend_count()
         return len(self._channels)
 
     def _select(self, exclude: set) -> Optional[int]:
@@ -339,6 +468,14 @@ class SelectiveChannel:
 
     def call_method(self, method: str, cntl: Controller, request, response,
                     done: Optional[Callable] = None):
+        if self._cluster is not None:
+            code = int(cntl.request_code or 0)
+            _native_call(
+                cntl, request, response, done,
+                lambda payload, timeout_ms: self._cluster.call(
+                    method, payload, timeout_ms=timeout_ms,
+                    max_retry=self.max_retry, request_code=code))
+            return
         tried = set()
         last = None
         for _ in range(self.max_retry + 1):

@@ -5,9 +5,9 @@ Port of brpc_tpu/rpc/device_transport.py for torch tensors:
 * ``local_device_info`` — the handshake identity, with the reference's
   keys. ``platform`` is ``"gpu"`` on the card (what JAX reports on an
   NVIDIA card). ``arena`` names this process's send arena; ``xfer`` is
-  True only when this process's transfer server has started. The port
-  has no descriptor-ring fabric, so ``fabric`` is ``""`` and a reference
-  peer never picks the ring lane toward the port.
+  True only when this process's transfer server has started; ``fabric``
+  names this process's descriptor-ring segment when the server half of
+  the handshake armed it (``arm_fabric``), else ``""``.
 * ``DeviceBlockPool`` — size classes 8 KB / 64 KB / 2 MB of device byte
   blocks that received bytes land in (the reference's block_pool role).
 * ``HostArena`` — a shared host arena carved into spans, page-locked for
@@ -17,10 +17,26 @@ Port of brpc_tpu/rpc/device_transport.py for torch tensors:
   retention until ACK, and the send lanes in the reference's order:
   in-process ticket (the *same* tensor, zero-copy), xfer (device to
   device through the transfer server: CUDA IPC on one host, or the TCP
-  fake), shm (one device-to-host copy into the arena, a descriptor on the
+  fake), ring (the bytes written once into the receiver's blob arena as
+  kind-8 records of the native descriptor-ring fabric, nothing on the
+  wire), shm (one device-to-host copy into the arena, a descriptor on the
   wire) and wire bytes.
-* ``receive_tensors`` — rebuilds tensors from every lane but the
-  descriptor ring, which needs the native runtime.
+* ``receive_tensors`` — rebuilds tensors from every lane.
+* The descriptor-ring fabric (the reference's ring lane): the start and
+  the handshake of a server with a TensorStore service arm it
+  (``BRPC_TPU_FABRIC=0`` keeps it off), creating this
+  process's segment of the native shm lane (``BRPC_TPU_FABRIC_ARENA``
+  bytes of blob arena per producer slot, 32 MiB by default) and a drain
+  thread that takes pushed records as leases. A same-host client attaches
+  to that segment as a producer (one segment per process) and pushes
+  there. The receiver consumes a lease in place: a host tensor laid over
+  the span (released when its storage dies), or, on the card, one copy
+  from the page-locked segment to the device, after which the lease is
+  released. Unlike the reference, which quietly advertises no fabric when
+  its native library fails to load, arming raises then.
+* The IOBuf arena seams: ``HostArena.make_block`` and
+  ``install_as_iobuf_allocator``, and ``install_read_arena`` (a growable
+  ``ReadArenaChain`` of arenas, page-locked on the card).
 
 The lanes taken and the pool's blocks are counted in variables with the
 reference's names, shown on the console's ``/vars``:
@@ -35,6 +51,7 @@ as the reference writes them; bfloat16 bytes cross as 16-bit patterns.
 from __future__ import annotations
 
 import atexit
+import ctypes
 import json
 import math
 import os
@@ -42,6 +59,7 @@ import struct
 import threading
 import time
 import uuid
+import weakref
 from multiprocessing import resource_tracker, shared_memory
 from typing import Dict, List, Optional, Tuple
 
@@ -118,19 +136,24 @@ def _host_boot_id() -> str:
 _boot_id = _host_boot_id()
 
 
-def local_device_info(device: DeviceLike = None) -> dict:
+def local_device_info(device: DeviceLike = None,
+                      arm_fabric: bool = False) -> dict:
     """The handshake identity, with the reference's keys. ``device`` is the
-    card unless the caller asks for the CPU."""
+    card unless the caller asks for the CPU. With ``arm_fabric`` (the
+    server half of the handshake) the descriptor-ring fabric is armed and
+    its segment advertised, page-locked first when ``device`` is the
+    card."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     arena = default_send_arena()
     if arena is not None and on_card:
         arena.pin()
+    fabric = _fabric_arm_receiver(pin=on_card) if arm_fabric else ""
     return {
         "process": _process_uuid,
         "host": _boot_id,
         "arena": arena.name if arena is not None else "",
-        "fabric": "",
+        "fabric": fabric,
         # advertised only when the server really started: a peer that sees
         # True may publish xfer-lane payloads with nothing on the wire
         "xfer": _global_xfer_server(dev) is not None,
@@ -336,6 +359,34 @@ class HostArena:
         with self._lock:
             return sum(s for _, s in self._free)
 
+    # -- the blockmem_allocate adapter ---------------------------------------
+    def make_block(self, capacity: int = 256 << 10):
+        """A writable IOBuf Block carved from this arena, its span freed
+        when the block is collected; None when the arena is full."""
+        from brpc_tpu_torch.butil.iobuf import Block
+
+        off = self.alloc(capacity)
+        if off is None:
+            return None
+        b = Block.__new__(Block)
+        b.data = memoryview(self.shm.buf)[off:off + capacity]
+        b.size = 0
+        b.capacity = capacity
+        b.kind = Block.USER
+        b.deleter = None
+        b.meta = off
+        b.device_array = None
+        weakref.finalize(b, self.free, off, capacity)
+        return b
+
+    def install_as_iobuf_allocator(self, capacity: int = 256 << 10):
+        """Point IOBuf's block factory at this arena: appended bytes and
+        socket reads are staged in memory a same-host peer can map (and,
+        pinned, the card can copy from)."""
+        from brpc_tpu_torch.butil import iobuf as iobuf_mod
+
+        iobuf_mod.set_block_allocator(lambda: self.make_block(capacity))
+
     def tensor(self, offset: int, nbytes: int) -> torch.Tensor:
         """A uint8 tensor over [offset, offset + nbytes) of the arena."""
         if nbytes == 0:
@@ -408,6 +459,7 @@ def attach_arena(name: str, pin: bool = False) -> Optional[HostArena]:
 
 def _cleanup_arenas():
     global _send_arena
+    _fabric_disarm()
     with _send_arena_lock:
         if _send_arena is not None:
             _send_arena.close()
@@ -419,6 +471,89 @@ def _cleanup_arenas():
 
 
 atexit.register(_cleanup_arenas)
+
+
+# -- the read-side arena seam (every IOBuf block transfer-ready) -------------------
+#
+# The reference points IOBuf's blockmem_allocate at its registered pool, so
+# every buffer a socket drains into is transfer-ready. install_read_arena is
+# that configuration: reads and appends land in prefaulted HostArena
+# blocks, the chain growing by whole prefaulted arenas when one is full.
+
+class ReadArenaChain:
+    """A growable chain of prefaulted HostArenas serving IOBuf blocks; on
+    the card each arena is page-locked as it is made."""
+
+    MAX_ARENAS = 8
+
+    def __init__(self, size: int = 32 << 20, capacity: int = 256 << 10,
+                 pin: bool = False):
+        self.size = size
+        self.capacity = capacity
+        self.pin = pin
+        self._lock = threading.Lock()
+        self.arenas = [self._arena()]
+        self.grows = 0
+
+    def _arena(self) -> HostArena:
+        arena = HostArena(size=self.size)
+        if self.pin:
+            arena.pin()
+        return arena
+
+    def alloc_block(self):
+        with self._lock:
+            arenas = list(self.arenas)
+        for arena in reversed(arenas):
+            b = arena.make_block(self.capacity)
+            if b is not None:
+                return b
+        with self._lock:
+            if len(self.arenas) >= self.MAX_ARENAS:
+                return None  # plain host blocks take over
+            try:
+                arena = self._arena()
+            except OSError:
+                return None
+            self.arenas.append(arena)
+            self.grows += 1
+        return arena.make_block(self.capacity)
+
+    def close(self):
+        for arena in self.arenas:
+            arena.close()
+
+
+_read_chain: Optional[ReadArenaChain] = None
+_read_chain_lock = threading.Lock()
+
+
+def install_read_arena(size: int = 32 << 20, capacity: int = 256 << 10,
+                       device: DeviceLike = None) -> ReadArenaChain:
+    """Install a prefaulted, growable arena chain as the IOBuf block
+    factory (page-locked when ``device`` is the card). Returns the chain;
+    uninstall_read_arena undoes it."""
+    global _read_chain
+    from brpc_tpu_torch.butil import iobuf as iobuf_mod
+
+    pin = resolve_device(device).type == "cuda"
+    with _read_chain_lock:
+        if _read_chain is None:
+            _read_chain = ReadArenaChain(size=size, capacity=capacity,
+                                         pin=pin)
+        iobuf_mod.set_block_allocator(_read_chain.alloc_block)
+    return _read_chain
+
+
+def uninstall_read_arena():
+    global _read_chain
+    from brpc_tpu_torch.butil import iobuf as iobuf_mod
+
+    with _read_chain_lock:
+        iobuf_mod.set_block_allocator(None)
+        chain, _read_chain = _read_chain, None
+    if chain is not None:
+        chain.close()
 
 
 # -- lanes taken, and the transfer server of the xfer lane ----------------------
@@ -497,6 +632,196 @@ def _xfer_evict(addr: str):
     redials (a restarted sender on the same address recovers)."""
     with _xfer_conns_lock:
         _xfer_conns.pop(addr, None)
+
+
+# -- the descriptor-ring tensor fabric (the ring lane) --------------------------
+#
+# The receiver owns a segment of the native shm lane whose slots same-host
+# peers claim as producers. A send writes each tensor's bytes once into the
+# receiver's blob arena (a kind-8 record, tagged) and only ``ring:<base>:
+# <count>:<seq>`` rides the RPC. The receiver's drain thread takes records
+# as leases, held by tag until the RPC that names them claims them (or
+# their time to live runs out: a sender whose RPC failed after the push).
+# Leases release in any order; the arena reclaims behind them.
+
+_fabric_lock = threading.Lock()
+_fabric_name: Optional[str] = None
+_fabric_thread: Optional[threading.Thread] = None
+_fabric_stop = threading.Event()
+_fabric_cv = threading.Condition()
+_fabric_records: Dict[int, Tuple[object, float]] = {}  # tag -> (lease, deadline)
+_fabric_pinned: Optional[Tuple[int, int]] = None  # (address, bytes) registered
+_producer_target: Optional[str] = None  # the segment this process pushes to
+_fabric_leases: "weakref.WeakSet" = weakref.WeakSet()  # every lease taken
+_FABRIC_RECORD_TTL_S = 30.0
+_FABRIC_TAKE_MS = 200
+_FABRIC_PUSH_WAIT_S = 0.25  # a full arena: back off this long, then shm
+
+
+def _segment_mapping(name: str) -> Optional[Tuple[int, int]]:
+    """(address, bytes) of this process's mapping of the shm segment
+    ``name``, from /proc/self/maps."""
+    path = "/dev/shm/" + name.lstrip("/")
+    with open("/proc/self/maps") as f:
+        for line in f:
+            if line.rstrip().endswith(path):
+                lo, hi = line.split()[0].split("-")
+                return int(lo, 16), int(hi, 16) - int(lo, 16)
+    return None
+
+
+def _fabric_pin(name: str):
+    """Page-lock the segment's mapping for CUDA, once (the reference's
+    registered-memory role): a lease's bytes then go to the card in
+    place."""
+    global _fabric_pinned
+    if _fabric_pinned is not None:
+        return
+    where = _segment_mapping(name)
+    if where is None:
+        raise RuntimeError(f"device transport: fabric segment {name!r} "
+                           f"is not mapped in this process")
+    cudart = torch.cuda.cudart()
+    err = cudart.cudaHostRegister(where[0], where[1], 0)
+    if err != cudart.cudaError.success:
+        raise RuntimeError(
+            f"device transport: cudaHostRegister of fabric segment "
+            f"{name!r} ({where[1]} B) failed: "
+            f"{cudart.cudaGetErrorString(err)}")
+    _fabric_pinned = where
+
+
+def _fabric_arm_receiver(pin: bool = False) -> str:
+    """Create this process's fabric segment and start the drain thread,
+    once; returns the segment's name. '' when BRPC_TPU_FABRIC=0. A native
+    library that does not build or load raises (the reference advertises
+    no fabric then)."""
+    global _fabric_name, _fabric_thread
+    if os.environ.get("BRPC_TPU_FABRIC", "1") == "0":
+        return ""
+    from brpc_tpu_torch import native
+
+    lib = native.load()
+    with _fabric_lock:
+        if _fabric_thread is None or not _fabric_thread.is_alive():
+            size = int(os.environ.get("BRPC_TPU_FABRIC_ARENA", str(32 << 20)))
+            if lib.nat_shm_lane_create(size) != 0:
+                raise RuntimeError("device transport: the fabric's shm "
+                                   "segment could not be created")
+            _fabric_name = native.shm_lane_name()
+            _fabric_stop.clear()
+            _fabric_thread = threading.Thread(
+                target=_fabric_drain_loop, daemon=True,
+                name="tensor-fabric-drain")
+            _fabric_thread.start()
+        if pin:
+            _fabric_pin(_fabric_name)
+        return _fabric_name
+
+
+def _fabric_drain_loop():
+    from brpc_tpu_torch import native
+
+    while not _fabric_stop.is_set():
+        t0 = time.monotonic()
+        lease = native.fabric_take(_FABRIC_TAKE_MS)
+        now = time.monotonic()
+        with _fabric_cv:
+            # abandoned records (their RPC failed after the push) must not
+            # hold the arena forever; purged on every wakeup, because a
+            # full arena stops the arrivals an arrival-gated purge awaits
+            stale = [t for t, (_, dl) in _fabric_records.items() if dl <= now]
+            for t in stale:
+                _fabric_records.pop(t)[0].release()
+        if lease is None:
+            if now - t0 < 1e-3:
+                # an empty take that did not wait: the lane is shut down
+                _fabric_stop.wait(_FABRIC_TAKE_MS / 1e3)
+            continue
+        _fabric_leases.add(lease)
+        with _fabric_cv:
+            _fabric_records[lease.tag] = (lease, now + _FABRIC_RECORD_TTL_S)
+            _fabric_cv.notify_all()
+
+
+def _fabric_claim(tag: int, timeout_s: float = 10.0):
+    """Wait for the drain thread to deliver tag's lease; None past the
+    deadline."""
+    deadline = time.monotonic() + timeout_s
+    with _fabric_cv:
+        while True:
+            entry = _fabric_records.pop(tag, None)
+            if entry is not None:
+                return entry[0]
+            remain = deadline - time.monotonic()
+            if remain <= 0:
+                return None
+            _fabric_cv.wait(remain)
+
+
+def fabric_state() -> dict:
+    """The receiver's state: its segment, the records taken and not yet
+    claimed, the leases not yet released (held records and tensors over
+    spans), and whether the segment is page-locked."""
+    with _fabric_cv:
+        held = len(_fabric_records)
+    live = sum(1 for lease in list(_fabric_leases) if not lease.released)
+    return {"name": _fabric_name or "", "held_records": held,
+            "live_leases": live,
+            "pinned": _fabric_pinned is not None,
+            "draining": _fabric_thread is not None
+            and _fabric_thread.is_alive()}
+
+
+def _fabric_disarm() -> bool:
+    """Stop the drain, release every held record, unregister the
+    page-locked mapping and unlink the segment (the library keeps its
+    mapping, so the unregistration always comes first). A later
+    handshake arms a fresh segment. False when nothing was armed."""
+    global _fabric_thread, _fabric_name, _fabric_pinned
+    with _fabric_lock:
+        t, _fabric_thread = _fabric_thread, None
+        if t is None:
+            return False
+        _fabric_stop.set()
+        t.join(timeout=5.0)
+        with _fabric_cv:
+            for lease, _ in _fabric_records.values():
+                lease.release()
+            _fabric_records.clear()
+        if _fabric_pinned is not None:
+            try:
+                torch.cuda.cudart().cudaHostUnregister(_fabric_pinned[0])
+            except RuntimeError:
+                pass  # CUDA already torn down (at exit)
+            _fabric_pinned = None
+        from brpc_tpu_torch import native
+
+        native.load().nat_shm_lane_enable(0)  # unlinks the segment
+        _fabric_name = None
+    return True
+
+
+def _fabric_attach_producer(name: str) -> bool:
+    """Attach this process as a producer on the peer segment ``name``.
+    The native mapping is process-wide: one target segment per process,
+    and none for a process with a segment of its own (a receiver or an
+    shm-worker parent), whose other peers take the shm lane."""
+    global _producer_target
+    from brpc_tpu_torch import native
+
+    if not native.available():
+        return False
+    with _fabric_lock:
+        if _producer_target is not None:
+            return _producer_target == name
+        own = native.shm_lane_name()
+        if own and own != name:
+            return False
+        if native.fabric_producer_attach(name) < 0:
+            return False
+        _producer_target = name
+        return True
 
 
 # -- in-process tensor exchange ------------------------------------------------
@@ -684,6 +1009,13 @@ class DeviceEndpoint:
                 f"xfer|{self._my_xfer_addr}|{uid}|{seq}")
             _count("xfer")
             return lambda: server.cancel(uid)  # a no-op once pulled
+        if (self.state == ESTABLISHED and self.same_host
+                and self.peer_info.get("fabric")
+                and self._ring_lane_send(tensors, meta, seq)):
+            # written once into the receiver's blob arena; the receiver
+            # owns the spans (leases), so the ACK has nothing to free
+            _count("ring")
+            return None
         if self.state == ESTABLISHED and self.same_host:
             arena = default_send_arena()
             offset = arena.alloc(total) if arena is not None else None
@@ -711,6 +1043,31 @@ class DeviceEndpoint:
             attachment.append_device_array(a)
         _count("wire")
         return None
+
+    def _ring_lane_send(self, tensors, meta, seq) -> bool:
+        """Push each tensor's bytes as one kind-8 record (tags base ..
+        base + n - 1) onto the peer's fabric; ``ring:<base>:<n>:<seq>``
+        rides the RPC instead. False: the caller goes on to the shm and
+        wire lanes."""
+        name = self.peer_info.get("fabric") or ""
+        if not name or len(tensors) > 256 or not _fabric_attach_producer(name):
+            # 256: the tag stride per seq (base = uid base + (seq << 8))
+            return False
+        from brpc_tpu_torch import native
+
+        base = (self._xfer_uuid_base + (seq << 8)) & ((1 << 62) - 1)
+        for i, a in enumerate(tensors):
+            flat = a.detach().contiguous().reshape(-1).view(torch.uint8)
+            host = flat.cpu().numpy()  # a card tensor: one copy to the host
+            # bounded backoff only: a receiver holding leases blocks the
+            # arena's reclaim, and the answer is the shm lane, not a stall
+            deadline = time.monotonic() + _FABRIC_PUSH_WAIT_S
+            while native.fabric_push(host, base + i) != 0:
+                if time.monotonic() >= deadline:
+                    return False  # pushed records expire at the receiver
+                time.sleep(0.0005)
+        meta.tensors[0].sharding_spec = f"ring:{base}:{len(tensors)}:{seq}"
+        return True
 
     def on_ack(self, seq: int):
         """Peer confirmed receipt: run the lane's release action (free the
@@ -767,13 +1124,70 @@ def _land(raw_u8: torch.Tensor, dtype, shape, device,
     return _bytes_as(raw_u8, dtype, shape).clone()
 
 
+def _lease_tensor(lease) -> torch.Tensor:
+    """A host uint8 tensor laid over the lease's span, no copy: the lease
+    is released when the tensor's storage (every view of it) dies."""
+    if lease.nbytes == 0:
+        lease.release()
+        return torch.empty(0, dtype=torch.uint8)
+    span = (ctypes.c_char * lease.nbytes).from_address(lease.address)
+    weakref.finalize(span, lease.release)
+    return torch.frombuffer(span, dtype=torch.uint8)
+
+
+def _receive_ring(parts, specs, device) -> List[torch.Tensor]:
+    """The ring lane: the records arrived in this process's blob arena;
+    claim their leases and consume them in place."""
+    if len(parts) != 4 or not (parts[1].isdigit() and parts[2].isdigit()):
+        raise ValueError(f"device transport: malformed ring spec "
+                         f"{':'.join(parts)!r}")
+    base, count = int(parts[1]), int(parts[2])
+    if count != len(specs):
+        raise ValueError(f"device transport: ring record count {count} != "
+                         f"{len(specs)} tensors")
+    leases = []
+    try:
+        for i in range(count):
+            lease = _fabric_claim(base + i)
+            if lease is None:
+                raise ValueError(f"device transport: ring record "
+                                 f"{base + i} never arrived (is the fabric "
+                                 f"receiver draining?)")
+            leases.append(lease)
+        for (_, _, nbytes), lease in zip(specs, leases):
+            if lease.nbytes != nbytes:
+                raise ValueError(f"device transport: ring record of "
+                                 f"{lease.nbytes} B for a {nbytes} B tensor")
+        if device is None:
+            # zero-copy: each tensor is its span, released when it dies
+            out = [_bytes_as(_lease_tensor(lease), dtype, shape)
+                   for (dtype, shape, _), lease in zip(specs, leases)]
+            leases = []
+            return out
+        dev = resolve_device(device)
+        pinned = _fabric_pinned is not None and dev.type == "cuda"
+        out = []
+        for (dtype, shape, nbytes), lease in zip(specs, leases):
+            raw = (torch.frombuffer(lease.view(), dtype=torch.uint8)
+                   if nbytes else torch.empty(0, dtype=torch.uint8))
+            out.append(_land(raw, dtype, shape, dev, pinned=pinned))
+        if dev.type == "cuda":
+            # the copies read the spans: done before the leases go back
+            torch.cuda.current_stream(dev).synchronize()
+        return out
+    finally:
+        for lease in leases:
+            lease.release()
+
+
 def receive_tensors(meta, attachment: IOBuf, device: DeviceLike = None,
                     endpoint: Optional[DeviceEndpoint] = None
                     ) -> Tuple[List, Optional[int]]:
     """Rebuild tensors from a tensor-bearing message. Returns (tensors,
-    ack_seq). ``device=None`` returns host tensors from the wire and shm
-    lanes (the reference returns numpy arrays then); a device puts their
-    bytes there through the block pool. The in-process lane hands over the
+    ack_seq). ``device=None`` returns host tensors from the wire, shm and
+    ring lanes (the reference returns numpy arrays then; a ring tensor lies
+    over its arena span, released when the tensor dies); a device puts
+    their bytes there through the block pool. The in-process lane hands over the
     sender's tensors. The xfer lane has no host landing: it pulls onto
     ``device``, else onto the connection's device (``endpoint.device``),
     and finishes before this returns, so the caller may ACK."""
@@ -795,14 +1209,13 @@ def receive_tensors(meta, attachment: IOBuf, device: DeviceLike = None,
             _xfer_evict(addr)  # redial next time (the sender may restart)
             raise
         return list(tensors), int(seq)
-    if spec.startswith("ring:"):
-        raise ValueError("device transport: lane 'ring' is not offered by "
-                         "this port's handshake")
     parts = spec.split(":")
     seq = None
     if len(parts) >= 3 and parts[-1].isdigit():
         seq = int(parts[-1])
     specs = [_tensor_spec(t) for t in meta.tensors]
+    if parts[0] == "ring":
+        return _receive_ring(parts, specs, device), seq
     if parts[0] == "inproc" and len(parts) >= 2 and parts[1].isdigit():
         tensors = inproc_claim(int(parts[1]))
         if tensors is None:

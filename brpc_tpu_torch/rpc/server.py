@@ -14,7 +14,11 @@ every connection, as the reference's Python path does (no drain).
 
 With ``device`` on the card, ``start`` makes the device identity once
 (CUDA's start, the send arena's page-locking, the transfer server), so
-that no handshake pays for it in the task that reads its connection.
+that no handshake pays for it in the task that reads its connection. A
+server with a TensorStore service also arms the descriptor-ring fabric
+there (unless ``BRPC_TPU_FABRIC=0``), which its handshake advertises: the
+native library is built at its first use, not under a call's deadline,
+and a failed build raises. Other servers need no native library.
 
 The RPC port answers HTTP too: ``curl http://host:port/status`` reads
 the console (brpc_tpu_torch/builtin/console.py: ``/status``, ``/vars``,
@@ -41,12 +45,24 @@ tpu_std and hulu request must carry a credential it verifies, or is
 answered EAUTH; the handler finds the verified ``cntl.auth_context``.
 Other protocols carry no credential, as in the reference.
 
-Left out: the native runtime and its workers. ``idle_timeout_s`` and
-``server_info_name`` are read nowhere in the reference and are not
-ported.
+With ``use_native_runtime`` the port's native library owns the port
+(rpc/native_runtime.py): accept, the event loop and the tpu_std, HTTP, h2
+and redis framing run in C++, and the services run on a Python lane of
+threads; with ``py_workers`` and ``py_worker_factory``, HTTP and gRPC
+calls run in that many worker processes over the shm lane. At most one
+native server lives in a process. ``start`` returns -1, and logs why,
+when the native server cannot start; it never falls back to the Python
+listener. ``stop`` then drains first: it stops accepting, lame-ducks every
+connection, finishes admitted calls within
+``graceful_shutdown_timeout_ms`` while refusing new ones, and closes the
+connections once flushed.
+
+``idle_timeout_s`` and ``server_info_name`` are read nowhere in the
+reference and are not ported.
 """
 from __future__ import annotations
 
+import logging
 import socket as pysocket
 import sys
 import threading
@@ -66,6 +82,8 @@ from brpc_tpu_torch.rpc.method_status import MethodStatus
 from brpc_tpu_torch.rpc.protocol import globally_initialize, list_server_protocols
 from brpc_tpu_torch.rpc.service import MethodInfo, Service
 from brpc_tpu_torch.rpc.socket import tls_context
+
+TENSOR_STORE_SERVICE = "TensorStore"
 
 
 @dataclass
@@ -106,6 +124,20 @@ class ServerOptions:
     # The identity the server half of the device handshake announces: the
     # card unless the caller asks for the CPU.
     device: DeviceLike = None
+    # the port on the native runtime (rpc/native_runtime.py); one per process
+    use_native_runtime: bool = False
+    # with it, the native EchoService.Echo and POST /echo handlers, which
+    # shadow Python services of the same name
+    native_builtin_echo: bool = False
+    # with it and redis_service, the GET/SET family on a native store
+    native_redis_store: bool = False
+    # with it, HTTP and gRPC calls in this many worker processes serving
+    # the Services "module:function" returns (importable afresh)
+    py_workers: int = 0
+    py_worker_factory: str = ""
+    # stop() on the native runtime drains admitted calls this long first
+    # (<= 0: an abrupt stop)
+    graceful_shutdown_timeout_ms: int = 5000
 
 
 class Server:
@@ -116,6 +148,7 @@ class Server:
         self._methods: Dict[Tuple[str, str],
                             Tuple[Service, MethodInfo, MethodStatus]] = {}
         self._acceptor: Optional[Acceptor] = None
+        self._native_mount = None
         self._messenger: Optional[InputMessenger] = None
         self.listen_endpoint: Optional[EndPoint] = None
         self._started = False
@@ -186,6 +219,11 @@ class Server:
     def service_count(self) -> int:
         return len(self._services)
 
+    def arms_fabric(self) -> bool:
+        """A server with a TensorStore service arms the descriptor-ring
+        fabric, so that same-host pushes land in its blob arena."""
+        return TENSOR_STORE_SERVICE in self._services
+
     # -- lifecycle ---------------------------------------------------------
     def start(self, address="127.0.0.1:0") -> int:
         """Listen on 'ip:port', ':port', an EndPoint or a port number (0:
@@ -200,12 +238,16 @@ class Server:
             ep = EndPoint.parse("127.0.0.1" + address
                                 if address.startswith(":") else address)
         device = resolve_device(self.options.device)
-        if device.type == "cuda":
-            # CUDA's start, the send arena's page-locking and the transfer
-            # server's start happen here, not in the first handshake
-            from brpc_tpu_torch.rpc.device_transport import local_device_info
+        from brpc_tpu_torch.rpc import device_transport as dt
 
-            local_device_info(device)
+        # CUDA's start, the send arena's page-locking, the transfer server's
+        # start and, for a TensorStore, the fabric's arming (the native
+        # library's build at its first use included, which raises when it
+        # fails) happen here, not in a handshake under a call's deadline
+        if device.type == "cuda":
+            dt.local_device_info(device, arm_fabric=self.arms_fabric())
+        elif self.arms_fabric():
+            dt._fabric_arm_receiver()
         with self._lock:
             if self._started:
                 return -1
@@ -222,22 +264,11 @@ class Server:
                                           keyfile=self.options.ssl_keyfile)
                 except (OSError, ValueError):
                     return -1  # no such file, or not a key for the chain
-            lfd = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_STREAM)
-            lfd.setsockopt(pysocket.SOL_SOCKET, pysocket.SO_REUSEADDR, 1)
-            try:
-                lfd.bind((ep.ip, ep.port))
-            except OSError:
-                lfd.close()
+            if self.options.use_native_runtime:
+                if not self._start_native(ep):
+                    return -1
+            elif not self._start_listener(ep, ssl_ctx):
                 return -1
-            lfd.listen(1024)
-            self.listen_endpoint = EndPoint(ep.ip, lfd.getsockname()[1])
-            protocols = list_server_protocols()
-            if self.options.enabled_protocols:
-                protocols = [p for p in protocols
-                             if p.name in self.options.enabled_protocols]
-            self._messenger = InputMessenger(protocols, arg=self)
-            self._acceptor = Acceptor(self._messenger, ssl_context=ssl_ctx)
-            self._acceptor.start_accept(lfd)
             self._started = True
             self.start_time = time.time()
             self._stopped_event.clear()
@@ -245,6 +276,47 @@ class Server:
                 self._install_sigterm_handler()
         bvar.expose_default_variables()
         return 0
+
+    def _start_listener(self, ep: EndPoint, ssl_ctx) -> bool:
+        lfd = pysocket.socket(pysocket.AF_INET, pysocket.SOCK_STREAM)
+        lfd.setsockopt(pysocket.SOL_SOCKET, pysocket.SO_REUSEADDR, 1)
+        try:
+            lfd.bind((ep.ip, ep.port))
+        except OSError:
+            lfd.close()
+            return False
+        lfd.listen(1024)
+        self.listen_endpoint = EndPoint(ep.ip, lfd.getsockname()[1])
+        protocols = list_server_protocols()
+        if self.options.enabled_protocols:
+            protocols = [p for p in protocols
+                         if p.name in self.options.enabled_protocols]
+        self._messenger = InputMessenger(protocols, arg=self)
+        self._acceptor = Acceptor(self._messenger, ssl_context=ssl_ctx)
+        self._acceptor.start_accept(lfd)
+        return True
+
+    def _start_native(self, ep: EndPoint) -> bool:
+        from brpc_tpu_torch.rpc.native_runtime import NativeRuntimeMount
+
+        mount = NativeRuntimeMount(self, self.options.num_threads)
+        try:
+            port = mount.start(ep.ip, ep.port,
+                               native_echo=self.options.native_builtin_echo)
+        except Exception as e:
+            # a bind conflict, a library that does not build, or a second
+            # native server in this process
+            logging.getLogger(__name__).error(
+                "native runtime did not start on %s: %s", ep, e)
+            return False
+        self._native_mount = mount
+        self.listen_endpoint = EndPoint(ep.ip, port)
+        return True
+
+    @property
+    def native_mount(self):
+        """The native-runtime mount while it serves, else None."""
+        return self._native_mount
 
     def _install_sigterm_handler(self):
         """SIGTERM runs stop() and join(), then exits 0. Installable from
@@ -264,13 +336,19 @@ class Server:
         except (ValueError, OSError):
             pass
 
-    def stop(self) -> int:
+    def stop(self, graceful: bool = True) -> int:
         """Stop accepting and fail every connection: their calls in flight
-        end with a socket error on the client. -1 when not running."""
+        end with a socket error on the client. On the native runtime the
+        calls admitted drain first (unless ``graceful`` is off). -1 when
+        not running."""
         with self._lock:
             if not self._started:
                 return -1
             self._started = False
+        mount, self._native_mount = self._native_mount, None
+        if mount is not None:
+            mount.stop(quiesce_timeout_ms=(
+                self.options.graceful_shutdown_timeout_ms if graceful else 0))
         if self._acceptor is not None:
             self._acceptor.stop_accept()
         self._stopped_event.set()

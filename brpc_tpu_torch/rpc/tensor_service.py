@@ -3,8 +3,9 @@
 Port of brpc_tpu/rpc/tensor_service.py: a TensorStore service accepts
 pushed tensors and serves pulls; tensors ride the tpu_std attachment
 described by RpcMeta.tensors, via brpc_tpu_torch.rpc.device_transport:
-zero-copy in process, a shared-arena descriptor or a device-to-device
-pull on the same host, and bytes on the wire otherwise.
+zero-copy in process, records in the receiver's descriptor-ring arena, a
+shared-arena descriptor or a device-to-device pull on the same host, and
+bytes on the wire otherwise.
 
 Server-side handshake counterpart: the ``device_handshake`` protocol
 below answers the DeviceEndpoint.app_connect handshake on accepted
@@ -74,12 +75,16 @@ def _parse_handshake(portal: IOBuf, sock, read_eof: bool, arg) -> ParseResult:
 def _process_handshake(msg: _HandshakeMsg):
     """Server half of the device handshake: answer with our identity and
     attach an ESTABLISHED/FALLBACK endpoint to the connection. The identity
-    is the server's device (``ServerOptions.device``)."""
+    is the server's device (``ServerOptions.device``). A server with a
+    TensorStore service arms the descriptor-ring fabric (its start already
+    did) and advertises its segment, so same-host clients push straight
+    into its blob arena (the ring lane); other servers advertise none
+    (queue C #37)."""
     sock = msg.socket
     device = msg.arg.options.device
     ep = DeviceEndpoint(device=device)
     ep.peer_info = msg.info
-    mine = local_device_info(device)
+    mine = local_device_info(device, arm_fabric=msg.arg.arms_fabric())
     from brpc_tpu_torch.rpc import device_transport as dt
 
     if msg.info.get("device_count", 0) > 0 and mine["device_count"] > 0:

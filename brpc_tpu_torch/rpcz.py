@@ -15,8 +15,8 @@ written, by a thread of their own, to a ``SpanDB`` of recordio files in
 two generations, where ``find_trace`` looks for what left the memory.
 ``enable_rpcz`` is on by default, as in the reference.
 
-The port has no native runtime, so ``drain_native_spans`` finds nothing
-and returns 0, as the reference's does without its runtime.
+``drain_native_spans`` is not ported yet (ROADMAP A12b): it finds
+nothing and returns 0, as the reference's does without its runtime.
 """
 from __future__ import annotations
 
@@ -296,7 +296,8 @@ def _submit(span: Span):
 
 
 def drain_native_spans() -> int:
-    """The spans of calls the native runtime handled; the port has none."""
+    """The spans of calls the native runtime handled (not drained yet:
+    ROADMAP A12b)."""
     return 0
 
 

@@ -5,8 +5,8 @@ reads the recordio files that the ``rpc_dump`` flag writes (either
 package's: the format is the same) and re-issues each sampled request
 through a Channel, optionally qps-throttled. Records of another lane than
 ``echo`` (tpu_std) are skipped. ``--native`` (the reference's native
-replay client) needs the native runtime, which the port does not have:
-it is refused with exit code 2.
+replay client) is not ported yet (ROADMAP A12b): it is refused with exit
+code 2.
 
 Usage:
   python -m brpc_tpu_torch.tools.rpc_replay --dir ./rpc_dump \\

@@ -3,8 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --peer`` is the second process of phases 6, 8,
-9, 10, 12, 13, 14, 15, 16 and 18, and ``--peer --tls`` that of phase 17;
-the script starts it itself.)
+9, 10, 12, 13, 14, 15, 16 and 18, ``--peer --tls`` that of phase 17 and
+``--peer19`` those of phase 19; the script starts them itself.)
 
 It drives the port's main path through the entry points a user calls and
 fails (non-zero exit, no result line) when any phase fails, when CUDA is
@@ -289,7 +289,37 @@ unavailable, or when the port is not beside it:
             their storage (``data_ptr`` equal); ``cut_into_file_descriptor``
             of it into a pipe writes their bytes. (d) ``python -m
             brpc_tpu_torch.examples.rtmp_relay``, started with the phase,
-            exits 0 with the reference's lines. The peer exits 0.
+            exits 0 with the reference's lines. The peer exits 0;
+19. native — the native runtime, with the descriptor-ring fabric on in
+            three of four ``--peer19`` processes (phases 6-18 keep it off
+            in both processes, so they measure the shm lane). (a) The port's native
+            library built from ``brpc_tpu_torch/native/src`` (g++'s version
+            and the seconds printed). (b) A peer on a Python listener:
+            float32, bfloat16 and int32 at 8 KiB and 2 MiB and the
+            activations pushed by the ring lane (written once into the
+            peer's page-locked blob arena, copied from there to its card),
+            pulled back and ACKed, XROUNDS each, each round in turn with
+            the same round to a peer alike but for its fabric, which is off
+            (``--no-fabric``: the shm lane, landing on the card too): every
+            byte equal, ``ring`` moving by the first peer's pushes and
+            ``shm`` by the second's, ``wire`` not, median and p99 of both
+            beside phase 6's shm round; then the ring peer holds no record,
+            no lease and no arena span. (c) A ``use_native_runtime`` peer
+            with 2 shm workers: 4 pushes of the activations by ring from
+            another process and one by wire land on its card bit-equal;
+            Echo from 16 connections on its Python lane, on a second native
+            peer's native echo and on (b)'s Python listener: qps, p50, p99,
+            beside phase 14's rpc_press; whether io_uring or epoll served;
+            /status over the native HTTP lane. (d) Kind-8 records of 8 KiB,
+            2 MiB and 8 MiB land on the card in the workers with the
+            sender's checksums, no unregistered drop; one HTTP and one gRPC
+            call answered by workers. (f) A NativeCluster (rr) over the two
+            native peers: ``parallel_call`` and ``partition_call`` bodies
+            equal the Python ParallelChannel's and PartitionChannel's;
+            ``MeshChannel.host_parallel_call`` the same. (e) The worker
+            peer stops under 16 pushing connections: every call answered
+            or refused with the reference's codes, no lease, record, span,
+            worker or ``/dev/shm`` segment left, every peer exits 0.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -5176,6 +5206,682 @@ def phase_rtmp(tag: str, gen, wire_round_s: float) -> dict:
     return result
 
 
+# -- phase 19: the native runtime -----------------------------------------------
+
+NATIVE19_S = 60          # the phase's budget, checked at its end
+PRESS_S_19 = 1.0         # each 16-connection Echo press
+PRESS_CONNS_19 = 16
+GRACE_MS_19 = 3000       # the peer's graceful_shutdown_timeout_ms
+WORKERS_19 = 2
+WORKER_FACTORY_19 = "brpc_tpu_torch.rpc.shm_worker:card_landing_services"
+SINK_SIZES_19 = (8 << 10, 2 << 20, 8 << 20)  # kind-8 records to the workers
+STOP_CODES_19 = {0, errors.ELIMIT, errors.EFAILEDSOCKET, errors.ECLOSE,
+                 errno.ECONNREFUSED, errno.ECONNRESET, errno.EPIPE}
+
+
+class FabricStore(TensorStoreService):
+    """Phase 19's store: a push lands on this process's card straight from
+    its lane (ring: from the page-locked fabric segment, a lease released
+    once the copy is done) before it is answered."""
+
+    def __init__(self):
+        super().__init__()
+        self.pushes = 0
+
+    @rpc_method(wire.TensorPushRequest, wire.TensorPushResponse)
+    def Push(self, cntl, request, response, done):
+        meta = getattr(cntl, "_rpc_meta", None)
+        if meta is None or not meta.tensors:
+            cntl.set_failed(errors.EREQUEST, "no tensors in request")
+            done()
+            return
+        arrays, seq = dt.receive_tensors(meta, cntl.request_attachment,
+                                         device="cuda")
+        with self._lock:
+            self._store[request.name] = arrays
+        self.pushes += 1
+        response.ok = True
+        response.ack_seq = seq or 0
+        done()
+
+
+class Control19(Service):
+    """The phase 19 peer's control: JSON ops in an EchoRequest's message,
+    the answer as JSON in the response's."""
+
+    SERVICE_NAME = "Control19"
+
+    def __init__(self, store: FabricStore):
+        self.store = store
+        self.srv = None
+        self.stop_at = None
+        self.stopper = None
+
+    def state(self) -> dict:
+        from brpc_tpu_torch import native
+
+        gc.collect()
+        mount = self.srv.native_mount
+        st = {"fabric": dt.fabric_state(), "lanes": dt.lane_counters(),
+              "pushes": self.store.pushes,
+              "memory_allocated": torch.cuda.memory_allocated(),
+              "workers": mount.shm_worker_pids() if mount else [],
+              "io_uring": bool(mount.io_uring) if mount else None}
+        st["spans"] = (native.res_stats()["shm.span"]["live_bytes"]
+                       if native.available() else 0)
+        return st
+
+    @rpc_method(wire.EchoRequest, wire.EchoResponse)
+    def Op(self, cntl, request, response, done):
+        from brpc_tpu_torch import native
+        from brpc_tpu_torch.rpc.shm_worker import checksum
+
+        op = json.loads(request.message)
+        out = {}
+        if op["op"] == "state":
+            out = self.state()
+        elif op["op"] == "drop":
+            with self.store._lock:
+                self.store._store.clear()
+            torch.cuda.synchronize()
+            out = self.state()
+        elif op["op"] == "push_workers":
+            gen = torch.Generator().manual_seed(op["seed"])
+            for i, n in enumerate(op["sizes"]):
+                data = torch.randint(0, 256, (n,), dtype=torch.uint8,
+                                     generator=gen)
+                out[str(op["tag"] + i)] = [n] + checksum(data)
+                check(native.shm_push_tensor(data.numpy(), op["tag"] + i)
+                      == 0, "19d: the workers' rings are full")
+        elif op["op"] == "stop":
+            self.stop_at = time.monotonic()
+            self.stopper = threading.Thread(target=self.srv.stop, daemon=True)
+            self.stopper.start()
+        response.message = json.dumps(out)
+        done()
+
+
+def peer19_main(argv) -> int:
+    """The phase 19 peer: TensorStore (FabricStore), SmokeEcho and
+    Control19, on the card, with the fabric armed. ``--native`` serves on
+    the native runtime, ``--workers N`` with N shm workers whose sink
+    lands records on the card, ``--builtin-echo`` with the native
+    EchoService.Echo."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --peer19: CUDA is not available", file=sys.stderr)
+        return 2
+    from brpc_tpu_torch import native
+
+    workers = int(argv[argv.index("--workers") + 1]) if "--workers" in argv else 0
+    store = FabricStore()
+    ctl = Control19(store)
+    opts = dict(num_threads=PEER_THREADS, use_native_runtime="--native" in argv,
+                native_builtin_echo="--builtin-echo" in argv,
+                graceful_shutdown_timeout_ms=GRACE_MS_19)
+    if workers:
+        opts.update(py_workers=workers, py_worker_factory=WORKER_FACTORY_19)
+    srv = Server(ServerOptions(**opts))
+    ctl.srv = srv
+    for svc in (store, SmokeEcho(), ctl):
+        check(srv.add_service(svc) == 0, "peer19 add_service")
+    check(srv.start("127.0.0.1:0") == 0, "peer19 server start")
+    print(f"peer ready {srv.listen_endpoint.port} "
+          f"{dt.fabric_state()['name'] or '-'}", flush=True)
+    quit_ = threading.Event()
+    threading.Thread(target=lambda: (sys.stdin.readline(), quit_.set()),
+                     daemon=True).start()
+    while srv.is_running and not quit_.wait(0.05):
+        pass
+    pids = srv.native_mount.shm_worker_pids() if srv.native_mount else []
+    t0 = time.monotonic()
+    if ctl.stopper is not None:
+        ctl.stopper.join(60)  # the stop asked for, under load
+    else:
+        srv.stop()
+    stop_s = time.monotonic() - (ctl.stop_at or t0)
+    with store._lock:
+        store._store.clear()
+    st = ctl.state()
+    st["stop_s"] = stop_s
+    st["pid"] = os.getpid()
+    st["worker_pids_before"] = pids
+    st["segments"] = sorted(glob.glob(f"{SHM_DIR}/brpc_tpu_torch_lane_"
+                                      f"{os.getpid()}_*"))
+    print("peer state " + json.dumps(st), flush=True)
+    return 0
+
+
+def spawn_peer19(*flags):
+    """A phase 19 peer with the fabric armed (no BRPC_TPU_FABRIC=0), or
+    with it off (``--no-fabric``)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("BRPC_TPU_FABRIC", None)
+    if "--no-fabric" in flags:
+        env["BRPC_TPU_FABRIC"] = "0"
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--peer19", *flags],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=here,
+        env=env)
+
+
+def stop_peer19(proc) -> dict:
+    """Close the peer's stdin (or it stopped itself); its final state."""
+    try:
+        proc.stdin.close()
+    except OSError:
+        pass
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError("chip_smoke: a phase 19 peer did not stop")
+    out = proc.stdout.read()
+    lines = [ln for ln in out.splitlines() if ln.startswith("peer state ")]
+    check(proc.returncode == 0 and lines,
+          f"19: the peer exited with code {proc.returncode}")
+    return json.loads(lines[-1][len("peer state "):])
+
+
+def ctl19(ch: Channel, op: str, **kw) -> dict:
+    cntl = Controller()
+    cntl.timeout_ms = 60000
+    resp = wire.EchoResponse()
+    ch.call_method("Control19.Op", cntl, wire.EchoRequest(
+        message=json.dumps({"op": op, **kw})), resp)
+    check(not cntl.failed(), f"19 control {op}: {cntl.error_text}")
+    return json.loads(resp.message)
+
+
+def native_build_19(tag: str) -> dict:
+    """19a: the port's native library from brpc_tpu_torch/native/src."""
+    from brpc_tpu_torch import native
+    from brpc_tpu_torch.native import build
+
+    gxx = subprocess.run([build.compiler(), "--version"], capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    lib = native.library_path()
+    took = time.perf_counter() - t0
+    native.load()
+    print(f"native/19a: {gxx}; library {os.path.relpath(lib)} built from "
+          f"brpc_tpu_torch/native/src in {took:.1f} s (one g++ -c per file, "
+          f"{os.cpu_count()} at once) {tag}")
+    return {"gxx": gxx, "build_s": round(took, 1)}
+
+
+def ring_rounds_19(endpoint: str, shm_endpoint: str, ch: Channel, gen,
+                   shm_ms: dict, tag: str):
+    """19b: push + pull + ACK rounds by the ring lane at phase 6's sizes,
+    each in turn with the same round to a peer alike but for its fabric,
+    which is off (the shm lane), both landing on their card; every byte
+    equal, ``ring`` moving by the first peer's pushes and ``shm`` by the
+    second's, ``wire`` not. Each round's time is split: the sender's lane
+    fill (``DeviceEndpoint._fill_lane``: the copies into the peer's
+    segment or this process's send arena), the rest of the push (the RPC
+    and the peer's landing on its card) and the pull with its ACK."""
+    dev = torch.device("cuda")
+    clients = {"ring": TensorClient(make_device_channel(endpoint)),
+               "shm": TensorClient(make_device_channel(shm_endpoint))}
+    payloads = [(label, x) for label, x in cross_payloads(gen)
+                if not label.startswith("64MiB")]
+    out = {}
+    fills = []
+    fill_lane = dt.DeviceEndpoint._fill_lane
+
+    def timed_fill(self, *args):
+        t = time.perf_counter()
+        try:
+            return fill_lane(self, *args)
+        finally:
+            fills.append(time.perf_counter() - t)
+
+    dt.DeviceEndpoint._fill_lane = timed_fill
+    try:
+        for label, x in payloads:
+            times = {"ring": [], "shm": []}
+            split = {lane: {"fill": [], "push_rest": [], "pull": []}
+                     for lane in times}
+            for r in range(XROUNDS):
+                for lane in ("ring", "shm") if r % 2 == 0 else ("shm", "ring"):
+                    client = clients[lane]
+                    lanes0 = dt.lane_counters()
+                    fills.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    cntl, resp = client.push(label, [x])
+                    t1 = time.perf_counter()
+                    check(not cntl.failed() and resp.ok and len(fills) == 1,
+                          f"19b {label} {lane} push: {cntl.error_text}")
+                    pcntl, got = client.pull(label, device=dev)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    times[lane].append(t2 - t0)
+                    split[lane]["fill"].append(fills[0])
+                    split[lane]["push_rest"].append(t1 - t0 - fills[0])
+                    split[lane]["pull"].append(t2 - t1)
+                    check(not pcntl.failed() and got is not None,
+                          f"19b {label} {lane} pull: {pcntl.error_text}")
+                    lanes = dt.lane_counters()
+                    other = "shm" if lane == "ring" else "ring"
+                    check(lanes[lane] == lanes0[lane] + 1
+                          and lanes[other] == lanes0[other]
+                          and lanes["wire"] == lanes0["wire"],
+                          f"19b {label}: the {lane} push took another lane: "
+                          f"{lanes0} -> {lanes}")
+                    fabric = cntl._current_sock.app_state.peer_info["fabric"]
+                    check(cntl.request_attachment.empty()
+                          and bool(fabric) == (lane == "ring"),
+                          f"19b {label} {lane}: payload bytes on the RPC "
+                          f"wire, or the peer's fabric {fabric!r}")
+                    check(got[0].dtype == x.dtype
+                          and torch.equal(u8(got[0]), u8(x)),
+                          f"19b {label} {lane}: bytes differ")
+            out[label] = {"median_ms": _ms(times["ring"]),
+                          "p99_ms": _p99(times["ring"]),
+                          "shm_fabric_off_median_ms": _ms(times["shm"]),
+                          "shm_fabric_off_p99_ms": _p99(times["shm"]),
+                          "shm_median_ms": round(
+                              shm_ms[f"shm/{label}"] * 1e3, 3),
+                          "split_median_ms": {
+                              lane: {k: _ms(v) for k, v in parts.items()}
+                              for lane, parts in split.items()}}
+    finally:
+        dt.DeviceEndpoint._fill_lane = fill_lane
+        for client in clients.values():
+            client.channel.close()
+    st = ctl19(ch, "drop")
+    check(st["fabric"]["held_records"] == 0 and st["fabric"]["live_leases"] == 0
+          and st["spans"] == 0,
+          f"19b: the peer's fabric is not at rest: {st['fabric']}, "
+          f"{st['spans']} B of arena spans held")
+    check(st["fabric"]["pinned"], "19b: the peer's fabric is not page-locked")
+    print("native/19b: push + pull + ACK x" + str(XROUNDS) + " by the ring "
+          "lane, each in turn with the same round by shm to a peer whose "
+          "fabric is off, both landing on the card, bytes equal: " + "; ".join(
+              f"{k} ring median {v['median_ms']} ms p99 {v['p99_ms']} ms, "
+              f"shm median {v['shm_fabric_off_median_ms']} ms p99 "
+              f"{v['shm_fabric_off_p99_ms']} ms (phase 6's shm median "
+              f"{v['shm_median_ms']} ms); median fill / rest of the push / "
+              f"pull ms: ring " + " / ".join(
+                  str(t) for t in v["split_median_ms"]["ring"].values())
+              + ", shm " + " / ".join(
+                  str(t) for t in v["split_median_ms"]["shm"].values())
+              for k, v in out.items())
+          + f"; the ring peer's fabric at rest, page-locked {tag}")
+    return out
+
+
+def echo_press_19(port: int, seconds: float = PRESS_S_19) -> dict:
+    """Echo over tpu_std from PRESS_CONNS_19 threads, a connection each,
+    one call at a time: qps, p50 and p99 in microseconds."""
+    stop = time.monotonic() + seconds
+    lat, errs = [], []
+
+    def one(k):
+        ch = Channel()
+        check(ch.init(f"127.0.0.1:{port}") == 0, "19c press channel")
+        try:
+            while time.monotonic() < stop:
+                cntl = Controller()
+                cntl.timeout_ms = 5000
+                t0 = time.perf_counter()
+                ch.call_method("EchoService.Echo", cntl,
+                               wire.EchoRequest(message=f"p{k}"),
+                               wire.EchoResponse())
+                lat.append(time.perf_counter() - t0)
+                if cntl.failed():
+                    errs.append(cntl.error_code)
+        finally:
+            ch.close()
+
+    t0 = time.perf_counter()
+    _run_threads([lambda k=k: one(k) for k in range(PRESS_CONNS_19)],
+                 "19c press")
+    took = time.perf_counter() - t0
+    check(lat and not errs, f"19c press: errors {errs[:5]}")
+    lat.sort()
+    return {"qps": round(len(lat) / took, 1),
+            "p50_us": round(lat[len(lat) // 2] * 1e6, 1),
+            "p99_us": round(_p99(lat) * 1e3, 1), "calls": len(lat)}
+
+
+RING_CLIENT_19 = r"""
+import json, os, sys, torch
+sys.path.insert(0, os.getcwd())
+from brpc_tpu_torch.rpc import device_transport as dt
+from brpc_tpu_torch.rpc.tensor_service import TensorClient, make_device_channel
+gen = torch.Generator(device="cuda").manual_seed(19)
+x = torch.randn((4, 512, 2048), dtype=torch.bfloat16, device="cuda",
+                generator=gen)
+port = int(sys.stdin.readline())  # started early: CUDA is up by now
+client = TensorClient(make_device_channel(f"127.0.0.1:{port}"))
+lanes0 = dt.lane_counters()
+ok = []
+for i in range(4):
+    cntl, resp = client.push("ring19c", [x])
+    pc, got = client.pull("ring19c", device="cuda")
+    ok.append(not cntl.failed() and resp.ok and not pc.failed()
+              and cntl.request_attachment.empty()
+              and torch.equal(got[0].view(torch.uint8), x.view(torch.uint8)))
+lanes = dt.lane_counters()
+client.channel.close()
+print(json.dumps({"ok": ok, "lanes": {k: lanes[k] - lanes0[k] for k in lanes}}))
+"""
+
+
+def spawn_ring_client_19():
+    """19c's pusher: a process of its own (a process pushes by ring to one
+    segment), told the native peer's port on its stdin."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, "-c", RING_CLIENT_19],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=here)
+
+
+def native_serve_19(n1: int, n2: int, ctl1: Channel, ring_client,
+                    press_a: dict, std_press: dict, tag: str) -> dict:
+    """19c: TensorStore on the native runtime by ring (from 19c's pusher)
+    and by wire; Echo under 16 connections on its Python lane and on the
+    native echo; /status over the native HTTP lane."""
+    dev = torch.device("cuda")
+    out, err = ring_client.communicate(f"{n1}\n", timeout=120)
+    check(ring_client.returncode == 0, f"19c ring client: {err[-2000:]}")
+    ring = json.loads(out.strip().splitlines()[-1])
+    check(all(ring["ok"]) and ring["lanes"]["ring"] == 4
+          and ring["lanes"]["shm"] == 0 and ring["lanes"]["wire"] == 0,
+          f"19c: ring pushes into the native peer: {ring}")
+    plain = Channel()
+    check(plain.init(f"127.0.0.1:{n1}") == 0, "19c plain channel")
+    try:
+        client = TensorClient(plain)
+        x = torch.arange(1 << 20, dtype=torch.int32, device=dev)
+        wire0 = dt.lane_counters()["wire"]
+        cntl, resp = client.push("wire19c", [x])
+        check(not cntl.failed() and resp.ok, f"19c wire push: {cntl.error_text}")
+        check(dt.lane_counters()["wire"] == wire0 + 1, "19c: not the wire lane")
+        pc, got = client.pull("wire19c", device=dev)
+        check(not pc.failed() and torch.equal(got[0], x),
+              "19c: the wire push came back changed")
+    finally:
+        plain.close()
+    st = ctl19(ctl1, "state")
+    check(st["pushes"] >= 5 and st["memory_allocated"] > 0,
+          f"19c: the native peer landed {st['pushes']} pushes on its card")
+    presses = {"native_python_lane": echo_press_19(n1),
+               "native_builtin_echo": echo_press_19(n2)}
+    code, _, status, _ = http_get(n2, "/status")
+    check(code == 200 and b"EchoService" in status,
+          "19c: /status over the native HTTP lane")
+    io_uring = ctl19(ctl1, "state")["io_uring"]
+    std = std_press["unthrottled"]
+    print("native/19c: the native runtime served by "
+          + ("io_uring" if io_uring else "epoll (io_uring refused)")
+          + f"; 4 pushes of the activations by ring from another process and "
+          f"one 4 MiB push by wire landed on its card bit-equal; Echo, 16 "
+          f"connections: " + "; ".join(
+              f"{k} {v['qps']} qps p50 {v['p50_us']} us p99 {v['p99_us']} us"
+              for k, v in {**presses, "python_listener": press_a}.items())
+          + f"; phase 14's rpc_press (4 threads, one channel) on the Python "
+          f"server {std['qps']} qps avg {std['avg_us']} us; /status "
+          f"answered over the native HTTP lane {tag}")
+    return {"ring_client": ring["lanes"], "io_uring": io_uring,
+            "press": {**presses, "python_listener": press_a}}
+
+
+def native_workers_19(n1: int, ctl1: Channel, tag: str) -> dict:
+    """19d: kind-8 records land on the card in the worker processes, with
+    the sender's checksums; one HTTP and one gRPC call through them."""
+    st = ctl19(ctl1, "state")
+    pids = st["workers"]
+    check(len(pids) == WORKERS_19, f"19d: workers {pids}")
+    sent = ctl19(ctl1, "push_workers", seed=19, sizes=list(SINK_SIZES_19),
+                 tag=1900)
+    gch = Channel(ChannelOptions(protocol=GRPC))
+    check(gch.init(f"127.0.0.1:{n1}") == 0, "19d grpc channel")
+    try:
+        states, landed = {}, {}
+        end = time.monotonic() + 30
+        while time.monotonic() < end:
+            cntl = Controller()
+            cntl.timeout_ms = 10000
+            resp = wire.EchoResponse()
+            gch.call_method("WorkerSink.State", cntl, wire.EchoRequest(), resp)
+            check(not cntl.failed(), f"19d gRPC: {cntl.error_text}")
+            w = json.loads(resp.message)
+            states[w["pid"]] = w
+            landed = {}
+            for s in states.values():
+                landed.update(s["landed"])
+            if set(states) == set(pids) and set(landed) == set(sent):
+                break
+            time.sleep(0.05)
+    finally:
+        gch.close()
+    check(set(states) == set(pids), f"19d: gRPC reached {set(states)} of {pids}")
+    for t, (n, *sums) in sent.items():
+        got = landed.get(t)
+        check(got is not None and got[0] == n and got[1] == "cuda"
+              and got[2:] == sums,
+              f"19d: record {t} landed as {got}, sent {[n] + sums}")
+    drops = [s["drops"] for s in states.values()]
+    check(drops == [0] * len(drops),
+          f"19d: shm_tensor_sink_unregistered_drops {drops}")
+    status, _, body, _ = http_get(
+        n1, "/EchoService/Echo", method="POST", body='{"message": "w"}',
+        headers={"Content-Type": "application/json"})
+    who = json.loads(body)["message"].split("@")
+    check(status == 200 and int(who[1]) in pids,
+          f"19d: HTTP answered by {who}, not a worker of {pids}")
+    print(f"native/19d: {WORKERS_19} shm workers (pids {pids}); records of "
+          f"{list(SINK_SIZES_19)} B landed on the card in the workers with "
+          f"the sender's checksums; unregistered drops {drops}; HTTP and "
+          f"gRPC answered by workers {tag}")
+    return {"workers": pids, "records": len(sent)}
+
+
+class _Keep19:
+    """A ResponseMerger keeping its sub-channel's response bytes."""
+
+    body = b""
+
+    def merge(self, main_response, sub_response) -> int:
+        self.body = sub_response.SerializeToString()
+        main_response.MergeFrom(sub_response)
+        return 0
+
+
+def native_cluster_19(n1: int, n2: int, tag: str) -> dict:
+    """19f: a NativeCluster (rr) over the two native peers against the
+    Python ParallelChannel and PartitionChannel to the same peers, and
+    host_parallel_call through a MeshChannel."""
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.parallel.mesh_channel import MeshChannel
+    from brpc_tpu_torch.parallel.world import RankMesh
+    from brpc_tpu_torch.rpc import ParallelChannel, PartitionChannel
+    from brpc_tpu_torch.rpc.native_cluster import NativeCluster
+
+    # the native cluster keeps its backends in endpoint order
+    eps = sorted([f"127.0.0.1:{n1}", f"127.0.0.1:{n2}"])
+    nodes = [(ep, 1, f"{i}/2") for i, ep in enumerate(eps)]
+    req = wire.EchoRequest(message="fan19")
+    payload = req.SerializeToString()
+    with NativeCluster(lb="rr", connect_timeout_ms=2000) as c:
+        c.update(nodes)
+        rc, par, err, failed = c.parallel_call("EchoService.Echo", payload,
+                                               timeout_ms=10000)
+        check(rc == 0 and failed == 0, f"19f parallel_call: {rc} {err}")
+        rc, part, err, failed = c.partition_call(
+            "EchoService.Echo", payload, timeout_ms=10000, partitions=2)
+        check(rc == 0 and failed == 0, f"19f partition_call: {rc} {err}")
+        with pysocket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            free = s.getsockname()[1]
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free}",
+                                world_size=1, rank=0)
+        try:
+            mc = MeshChannel(RankMesh(MeshSpec()), "dp").attach_host_cluster(c)
+            rc, host, err, failed = mc.host_parallel_call(
+                "EchoService.Echo", payload, timeout_ms=10000)
+        finally:
+            dist.destroy_process_group()
+        check(rc == 0 and host == par, f"19f host_parallel_call: {rc} {err}")
+    bodies = {}
+    for name, make in (
+            ("parallel", lambda ms: _py_parallel(eps, ms)),
+            ("partition", lambda ms: _py_partition(eps, ms))):
+        mergers = [_Keep19(), _Keep19()]
+        ch = make(mergers)
+        try:
+            cntl = Controller()
+            cntl.timeout_ms = 10000
+            ch.call_method("EchoService.Echo", cntl, req, wire.EchoResponse())
+            check(not cntl.failed(), f"19f Python {name}: {cntl.error_text}")
+        finally:
+            ch.stop()
+        bodies[name] = b"".join(m.body for m in mergers)
+    check(bodies["parallel"] == par and bodies["partition"] == part,
+          "19f: the native bodies differ from the Python channels'")
+    print(f"native/19f: NativeCluster rr over the two native peers: "
+          f"parallel_call and partition_call bodies ({len(par)} B, "
+          f"{len(part)} B) equal the Python ParallelChannel's and "
+          f"PartitionChannel's; MeshChannel.host_parallel_call the same "
+          f"{tag}")
+    return {"parallel_bytes": len(par), "partition_bytes": len(part)}
+
+
+def _py_parallel(eps, mergers):
+    from brpc_tpu_torch.rpc import ParallelChannel
+
+    pc = ParallelChannel()
+    for ep, m in zip(eps, mergers):
+        ch = Channel()
+        check(ch.init(ep) == 0, "19f channel")
+        pc.add_channel(ch, None, m)
+    pc.stop = lambda: [c.close() for c, _, _ in pc._subs]
+    return pc
+
+
+def _py_partition(eps, mergers):
+    from brpc_tpu_torch.rpc import PartitionChannel
+
+    pc = PartitionChannel()
+    check(pc.init(2, "list://" + ",".join(f"{ep} {i}/2" for i, ep in
+                                          enumerate(eps))) == 0,
+          "19f partition init")
+    pc._subs = [(c, None, m) for (c, _, _), m in zip(pc._subs, mergers)]
+    return pc
+
+
+def graceful_stop_19(n1: int, ctl1: Channel, tag: str) -> dict:
+    """19e: the native peer stops under load from 16 pushing connections;
+    every call answered or refused with the reference's codes."""
+    dev = torch.device("cuda")
+    x = torch.randn((1 << 16,), device=dev)
+    codes, go = [], threading.Event()
+
+    def pusher(k):
+        ch = Channel()
+        check(ch.init(f"127.0.0.1:{n1}") == 0, "19e channel")
+        client = TensorClient(ch)
+        go.wait(30)
+        try:
+            for _ in range(10000):
+                cntl, _ = client.push(f"stop{k}", [x], timeout_ms=10000)
+                codes.append(cntl.error_code)
+                if cntl.failed():
+                    return
+        finally:
+            ch.close()
+
+    threads = [threading.Thread(target=pusher, args=(k,), daemon=True)
+               for k in range(16)]
+    for t in threads:
+        t.start()
+    go.set()
+    _wait(lambda: codes.count(0) >= 32, 30, "19e: the pushers under way")
+    ctl19(ctl1, "stop")
+    for t in threads:
+        t.join(60)
+    check(not any(t.is_alive() for t in threads), "19e: a pusher hangs")
+    hist = {c: codes.count(c) for c in sorted(set(codes))}
+    check(set(hist) <= STOP_CODES_19 and hist.get(0, 0) >= 32,
+          f"19e: calls ended with {hist}")
+    return hist
+
+
+def phase_native(tag: str, gen, lanes: dict, std_press: dict) -> dict:
+    """19: the native runtime (its build, the ring lane, a native server
+    with shm workers, a graceful stop, the native cluster)."""
+    t_start = time.perf_counter()
+    # the peers start CUDA while this process builds the library (they
+    # wait on its lock, then load the same build)
+    procs = {"a": spawn_peer19(),
+             "s": spawn_peer19("--no-fabric"),
+             "n1": spawn_peer19("--native", "--workers", str(WORKERS_19)),
+             "n2": spawn_peer19("--native", "--builtin-echo"),
+             "ring_client": spawn_ring_client_19()}
+    chans = {}
+    finals = {}
+    result = {}
+    try:
+        result["build"] = native_build_19(tag)
+        ports = {k: await_peer(p)[0] for k, p in procs.items()
+                 if k != "ring_client"}
+        for k, port in ports.items():
+            chans[k] = Channel()
+            check(chans[k].init(f"127.0.0.1:{port}") == 0, "19 control channel")
+        result["ring"] = ring_rounds_19(f"127.0.0.1:{ports['a']}",
+                                        f"127.0.0.1:{ports['s']}", chans["a"],
+                                        gen, lanes, tag)
+        finals["s"] = stop_peer19(procs.pop("s"))
+        press_a = echo_press_19(ports["a"])
+        finals["a"] = stop_peer19(procs.pop("a"))
+        result["serve"] = native_serve_19(ports["n1"], ports["n2"],
+                                          chans["n1"],
+                                          procs.pop("ring_client"), press_a,
+                                          std_press, tag)
+        result["workers"] = native_workers_19(ports["n1"], chans["n1"], tag)
+        result["cluster"] = native_cluster_19(ports["n1"], ports["n2"], tag)
+        result["stop"] = graceful_stop_19(ports["n1"], chans["n1"], tag)
+        finals["n1"] = stop_peer19(procs.pop("n1"))
+        finals["n2"] = stop_peer19(procs.pop("n2"))
+    finally:
+        for ch in chans.values():
+            ch.close()
+        for p in procs.values():
+            p.kill()
+            p.wait()
+            # a killed peer cannot unlink its segment
+            for seg in glob.glob(f"{SHM_DIR}/brpc_tpu_torch_lane_{p.pid}_*"):
+                os.unlink(seg)
+    check(not finals["n1"]["segments"],
+          f"19e: the stopped peer's segments {finals['n1']['segments']}")
+    for k, st in finals.items():
+        check(st["fabric"]["held_records"] == 0
+              and st["fabric"]["live_leases"] == 0 and st["spans"] == 0
+              and not st["workers"], f"19e: peer {k} left {st}")
+        for pid in st["worker_pids_before"]:
+            check(not os.path.exists(f"/proc/{pid}"),
+                  f"19e: worker {pid} of peer {k} is still alive")
+        left = glob.glob(f"{SHM_DIR}/brpc_tpu_torch_lane_{st['pid']}_*")
+        check(not left, f"19e: peer {k} left {left} after its exit")
+    n1 = finals["n1"]
+    result["stop"] = {"codes": result["stop"], "stop_s": round(n1["stop_s"], 3)}
+    took = time.perf_counter() - t_start
+    print(f"native/19e: the native peer stopped under 16 pushing connections "
+          f"in {n1['stop_s']:.3f} s (graceful_shutdown_timeout_ms "
+          f"{GRACE_MS_19}): calls ended with {result['stop']['codes']}; "
+          f"no lease, record, arena span, worker or segment left in any "
+          f"peer, each exited 0; phase took {took:.1f} s {tag}")
+    check(took < NATIVE19_S, f"19: the phase took {took:.1f} s")
+    result["seconds"] = round(took, 1)
+    print("native " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5184,6 +5890,9 @@ def main() -> int:
     tag = f"[{card}]"
     print(card)  # as nvidia-smi gives it: name, power limit
 
+    # phases 1-18 measure the shm lane between this process and its peers:
+    # the descriptor-ring fabric stays off in both until phase 19
+    os.environ["BRPC_TPU_FABRIC"] = "0"
     gen = torch.Generator(device="cuda").manual_seed(1234)
     srv = Server(ServerOptions())
     check(srv.add_service(TensorStoreService()) == 0, "add_service")
@@ -5211,6 +5920,7 @@ def main() -> int:
     legacy = phase_legacy(tag, gen, wire_8mib / 1e6, grpc, examples["press"])
     phase_tls(tag, gen, lanes["wire/8MiB-act"], legacy["sequential"])
     phase_rtmp(tag, gen, lanes["wire/8MiB-act"])
+    phase_native(tag, gen, lanes, examples["press"])
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "
@@ -5225,4 +5935,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--peer"]:
         sys.exit(peer_main(tls=sys.argv[2:] == ["--tls"]))
+    if sys.argv[1:2] == ["--peer19"]:
+        sys.exit(peer19_main(sys.argv[2:]))
     sys.exit(main())

@@ -6,7 +6,7 @@ against three port servers in this process, and both must give the same
 merged response. Fan-out, partial failure, ``fail_limit``, a call mapper,
 selective failover, partition, the partition parser's garbage cases and
 the dynamic partition; the default merger's bytes; ``native=True``
-refused by the port, which has no native runtime.
+on the native cluster (rpc/native_cluster.py), and what it refuses.
 """
 import pytest
 
@@ -19,6 +19,10 @@ from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.proto import wire
 
 DEAD = "127.0.0.1:1"
+
+
+class _CustomParser(rpc.PartitionParser):
+    """A parser of its own: the native channels read "i/n" tags only."""
 
 
 def _echo_service(mod, msgs):
@@ -230,7 +234,20 @@ def test_dynamic_partition_channel(trios):
 
 
 def test_native_combo_channels_are_refused():
-    for cls in (rpc.ParallelChannel, rpc.PartitionChannel,
-                rpc.DynamicPartitionChannel, rpc.SelectiveChannel):
+    """What the native path refuses, as in the reference: a naming-url
+    init without native=True, and add_channel on a native channel."""
+    for cls in (rpc.ParallelChannel, rpc.SelectiveChannel):
         with pytest.raises(ValueError, match="native"):
-            cls(native=True)
+            cls().init("list://127.0.0.1:1")
+        ch = cls(native=True)
+        assert ch.init("list://127.0.0.1:1") == 0
+        try:
+            with pytest.raises(ValueError, match="native"):
+                ch.add_channel(rpc.Channel())
+        finally:
+            ch.stop()
+    for cls in (rpc.PartitionChannel, rpc.DynamicPartitionChannel):
+        with pytest.raises(ValueError, match="native"):
+            args = (1,) if cls is rpc.PartitionChannel else ()
+            cls(native=True).init(*args, "list://127.0.0.1:1 0/1",
+                                  parser=_CustomParser())

@@ -180,7 +180,10 @@ def _raw(x) -> bytes:
     return np.ascontiguousarray(x).tobytes()
 
 
-def test_reference_client_against_port_server():
+def test_reference_client_against_port_server(monkeypatch):
+    # both packages without the ring lane: a port server would advertise
+    # its fabric, and the reference would try to build its library to push
+    monkeypatch.setenv("BRPC_TPU_FABRIC", "0")
     svc = ts.TensorStoreService()
     srv = rpc.Server(rpc.ServerOptions(device="cpu"))
     srv.add_service(svc)

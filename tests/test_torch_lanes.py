@@ -241,10 +241,13 @@ def _check_interop_round(client_push, client_pull, stored_of, lane, counters,
         assert _bytes(pulled[0]) == _bytes(x)
 
 
-def test_interop_reference_client_port_server(fakes):
+def test_interop_reference_client_port_server(fakes, monkeypatch):
     """The reference pushes to a port server and pulls back: shm with the
     flag off, then the fake xfer lane, where the port pulls from the
     reference's fake and the reference from the port's."""
+    # both packages without the ring lane: a port server would advertise
+    # its fabric, and the reference would try to build its library to push
+    monkeypatch.setenv("BRPC_TPU_FABRIC", "0")
     port, ref = fakes
     svc = ts.TensorStoreService()
     srv = rpc.Server(rpc.ServerOptions(device=CPU))
@@ -309,7 +312,7 @@ srv.stop()
 """
 
 
-def test_two_process_xfer_transfer(fakes):
+def test_two_process_xfer_transfer(fakes, monkeypatch):
     """Twin of test_device_lane.py::test_two_process_xfer_transfer, port to
     port: the server process runs the fake with prefer-xfer set from its
     environment. Flag off here: the push rides the shm arena, the pull
@@ -317,6 +320,9 @@ def test_two_process_xfer_transfer(fakes):
     resolved, nothing on the RPC wire, publications released by the
     pulls."""
     port, _ = fakes
+    # no ring lane on either side: the push with the flag off is the shm
+    # lane's, as between two reference processes with the fabric off
+    monkeypatch.setenv("BRPC_TPU_FABRIC", "0")
     env = dict(os.environ, BRPC_TPU_FAKE_XFER="1",
                BRPC_TPU_DEVICE_TRANSPORT_PREFER_XFER="1")
     env.pop("PYTHONPATH", None)
