@@ -157,6 +157,10 @@ class TaskControl:
         self._tid_lock = threading.Lock()
         self.idle_hooks: List[Callable[[], bool]] = []
         self._metas: Dict[int, TaskMeta] = {}
+        # the steal start draws from a generator of its own: idle workers
+        # steal ten times a second, and draws from the global ``random``
+        # would move every seeded sequence of the process under its feet
+        self._steal_rng = random.Random()
         # bvar instrumentation mirroring task_control.h:111-121
         self._nswitch_var = bvar.Adder("bthread_switch_count")
         self._finished_var = bvar.Adder("bthread_count_finished")
@@ -230,7 +234,7 @@ class TaskControl:
         n = len(self.groups)
         if n <= 1:
             return None
-        start = random.randrange(n)
+        start = self._steal_rng.randrange(n)
         for i in range(n):
             victim = self.groups[(start + i) % n]
             if victim.group_id == thief_group_id:

@@ -11,13 +11,15 @@ and the profilers' ``/hotspots``, ``/pprof`` and ``/threads``
 (builtin/hotspots.py). A handler takes (server, http_request) and
 returns (status, content_type, body), or with extra headers a 4-tuple.
 
-Each page prints what the port has. Left out: the native runtime's
-sections of ``/status`` and ``/connections``, its ``/heap/native``
-and ``/growth/native`` profiles and the capture window of
-``/rpc_dump?seconds=N`` (not ported yet, ROADMAP A12b: those answer
-the reference's "native runtime unavailable", and ``/rpc_dump`` shows
-the reference's status page without a native recorder), and the page of
-a module not ported yet: ``/fleet``.
+A process whose native runtime is loaded (a ``use_native_runtime``
+server) also shows the runtime's section of ``/status``, its sockets on
+``/connections``, ``/heap/native`` and ``/growth/native`` (live native
+bytes by allocation site, and their growth), the native recorder's state
+on ``/rpc_dump`` and its capture window ``/rpc_dump?seconds=N[&every=M]
+[&dir=PATH]``, which replays with ``rpc_replay --native``. A page reads
+only a library the process has loaded and never builds one (queue C
+#38); without one it answers what the reference answers without its
+runtime. Left out: the page of a module not ported yet, ``/fleet``.
 """
 from __future__ import annotations
 
@@ -28,15 +30,27 @@ import stat
 import time
 from xml.sax.saxutils import escape
 
-from brpc_tpu_torch import bvar, rpcz
+from brpc_tpu_torch import bvar, native, rpcz
+from brpc_tpu_torch.builtin import hotspots
 from brpc_tpu_torch.builtin.hotspots import (
     _NATIVE_UNAVAILABLE,
+    _ProfWindow,
     hotspots_handler,
     pprof_handler,
     threads_handler,
 )
 from brpc_tpu_torch.butil import flags as flags_mod
+from brpc_tpu_torch.bvar.native_vars import (
+    connection_rates,
+    native_status_lines,
+    prune_connection_windows,
+)
 from brpc_tpu_torch.rpc import rpc_dump  # noqa: F401 (defines its flags)
+
+# one native capture window at a time: the recorder is one resource, and
+# a second /rpc_dump?seconds= while one runs gets 503 and Retry-After
+_rpc_dump_window = _ProfWindow(
+    30.0, "rpc_dump busy: another /rpc_dump capture window is running\n")
 
 
 def _version() -> str:
@@ -46,7 +60,8 @@ def _version() -> str:
 
 
 def _status_handler(server, req):
-    """/status: the server and each method's stats."""
+    """/status: the server and each method's stats, and the native
+    runtime's section when it carried traffic."""
     lines = [
         f"version: {_version()}",
         "non-service: builtin",
@@ -58,6 +73,7 @@ def _status_handler(server, req):
     ]
     for _, st in sorted(server.method_statuses().items()):
         lines.append(st.describe())
+    lines += native_status_lines()
     return 200, "text/plain", "\n".join(lines) + "\n"
 
 
@@ -153,13 +169,43 @@ def _health_handler(server, req):
     return 200, "text/plain", "OK\n"
 
 
+def _native_socket_lines(rows) -> list:
+    """/connections' native table: one row per live native socket, its
+    byte counters with their windowed rates."""
+    lines = ["", "native sockets:",
+             "remote_side          |socket_id          |proto   |side  |"
+             "disp|in_bytes(/s)        |out_bytes(/s)       |in_msg  |"
+             "out_msg |rd_sys  |wr_sys  |unwritten |mem_bytes"]
+    prune_connection_windows(r["sock_id"] for r in rows)
+    total_mem = 0
+    for r in sorted(rows, key=lambda r: r["sock_id"]):
+        rates = connection_rates(r["sock_id"])
+        in_cell = f"{r['in_bytes']}({rates['in_Bps']:,.0f}/s)"
+        out_cell = f"{r['out_bytes']}({rates['out_Bps']:,.0f}/s)"
+        total_mem += r["mem_bytes"]
+        lines.append(
+            f"{r['remote'] or '?':21s}|{r['sock_id']:<19d}|"
+            f"{r['protocol']:8s}|{'srv' if r['server_side'] else 'cli':6s}|"
+            f"{r['disp_idx']:<4d}|{in_cell:<20s}|{out_cell:<20s}|"
+            f"{r['in_msgs']:<8d}|{r['out_msgs']:<8d}|"
+            f"{r['read_calls']:<8d}|{r['write_calls']:<8d}|"
+            f"{r['unwritten_bytes']:<10d}|{r['mem_bytes']}")
+    lines.append(f"native socket buffered memory: {total_mem} bytes "
+                 f"across {len(rows)} sockets")
+    return lines
+
+
 def _connections_handler(server, req):
-    """/connections: the server's connections."""
+    """/connections: the server's connections, and the native runtime's
+    sockets when it is loaded."""
     lines = ["remote_side          |socket_id          |state"]
     for sock in server.list_connections():
         lines.append(
             f"{str(sock.remote_side):21s}|{sock.socket_id:<19d}|"
             f"{'failed' if sock.failed() else 'ok'}")
+    rows = native.conn_snapshot() if native.is_loaded() else []
+    if rows:
+        lines += _native_socket_lines(rows)
     return 200, "text/plain", "\n".join(lines) + "\n"
 
 
@@ -222,25 +268,44 @@ def _sockets_handler(server, req):
     return 200, "text/plain", f"socket_slots: {_registry.size()}\n"
 
 
-def _native_or(profile, req):
+def _native_window(req, body_fn):
+    """/heap/native and /growth/native: ``body_fn(seconds)`` under the
+    allocation tracker's one window."""
+    try:
+        seconds = float(req.query.get("seconds", "0") or 0)
+    except ValueError:
+        return 400, "text/plain", "seconds must be a number\n"
+    return hotspots._res_prof_window.run(max(0.1, seconds),
+                                         lambda _: body_fn(seconds))
+
+
+def _is_native(req) -> bool:
     parts = [p for p in req.path.split("/") if p]
-    if len(parts) > 1 and parts[1] == "native":
-        return 200, "text/plain", _NATIVE_UNAVAILABLE
-    return 200, "text/plain", profile()
+    return len(parts) > 1 and parts[1] == "native"
 
 
 def _heap_handler(server, req):
-    """/heap: live allocations by site (tracemalloc)."""
+    """/heap: live allocations by site (tracemalloc); /heap/native the
+    native allocators' (``?flat=1`` a table, ``?seconds=N`` watching N
+    seconds first)."""
     from brpc_tpu_torch.builtin import profilers
 
-    return _native_or(profilers.heap_profile, req)
+    if _is_native(req):
+        flat = req.query.get("flat", "") not in ("", "0")
+        return _native_window(
+            req, lambda s: hotspots.heap_native(s, flat=flat))
+    return 200, "text/plain", profilers.heap_profile()
 
 
 def _growth_handler(server, req):
-    """/growth: allocation growth since profiling started (tracemalloc)."""
+    """/growth: allocation growth since profiling started (tracemalloc);
+    /growth/native the native allocators' since the baseline
+    (``?seconds=N``: that window's growth)."""
     from brpc_tpu_torch.builtin import profilers
 
-    return _native_or(profilers.growth_profile, req)
+    if _is_native(req):
+        return _native_window(req, hotspots.growth_native)
+    return 200, "text/plain", profilers.growth_profile()
 
 
 def _rpcz_handler(server, req):
@@ -248,28 +313,83 @@ def _rpcz_handler(server, req):
     return 200, "text/plain", rpcz.describe_recent_spans(req.query)
 
 
+def _native_recorder_lines(st) -> list:
+    lines = [f"native recorder: {'RUNNING' if st['running'] else 'stopped'}"
+             f"  sample_every={st['every']}  seed={st['seed']}",
+             f"  window: samples={st['samples']} written={st['written']} "
+             f"bytes={st['bytes']} drops={st['drops']} "
+             f"oversize={st['oversize']} rotations={st['rotations']}",
+             f"  config: dir={st['dir'] or '(unset)'} "
+             f"max_file_bytes={st['max_file_bytes']} "
+             f"generations={st['generations']} "
+             f"max_payload={st['max_payload']}"]
+    if st["dir"]:
+        try:
+            names = sorted(n for n in os.listdir(st["dir"])
+                           if n.endswith(".rio"))
+        except OSError:
+            names = []
+        lines.append(f"  capture files ({len(names)}):")
+        for n in names:
+            try:
+                size = os.path.getsize(os.path.join(st["dir"], n))
+            except OSError:
+                size = 0
+            lines.append(f"    {n}  {size} bytes")
+    return lines
+
+
 def _rpc_dump_status_body():
-    """/rpc_dump's status: the reference's page without a native
-    recorder, and the flags of the recorder of the Python lane."""
-    lines = ["traffic flight recorder (rpc_dump)", "",
-             "native recorder: unavailable (no native runtime)", "",
-             f"python lane: -rpc_dump={flags_mod.get_flag('rpc_dump')} "
-             f"-rpc_dump_dir={flags_mod.get_flag('rpc_dump_dir')} "
-             f"-rpc_dump_sample_every="
-             f"{flags_mod.get_flag('rpc_dump_sample_every')}",
-             "",
-             "GET /rpc_dump?seconds=N[&every=M][&dir=PATH] arms a "
-             "bounded native capture window; replay the files with "
-             "`python tools/rpc_replay.py --native`."]
+    """/rpc_dump's status: the native recorder (its window's counts, its
+    settings and capture files) and the Python lane's recorder flags."""
+    lines = ["traffic flight recorder (rpc_dump)", ""]
+    if native.is_loaded():
+        lines += _native_recorder_lines(native.dump_status())
+    else:
+        lines.append("native recorder: unavailable (no native runtime)")
+    lines += ["",
+              f"python lane: -rpc_dump={flags_mod.get_flag('rpc_dump')} "
+              f"-rpc_dump_dir={flags_mod.get_flag('rpc_dump_dir')} "
+              f"-rpc_dump_sample_every="
+              f"{flags_mod.get_flag('rpc_dump_sample_every')}",
+              "",
+              "GET /rpc_dump?seconds=N[&every=M][&dir=PATH] arms a "
+              "bounded native capture window; replay the files with "
+              "`python tools/rpc_replay.py --native`."]
     return "\n".join(lines) + "\n"
 
 
 def _rpc_dump_handler(server, req):
-    """/rpc_dump: the recorder's status; a capture window (?seconds=N)
-    needs the native runtime."""
-    if req.query.get("seconds"):
+    """/rpc_dump: the recorders' status; ?seconds=N arms the native
+    recorder for N seconds (one window at a time) and then answers the
+    status."""
+    seconds = req.query.get("seconds")
+    if not seconds:
+        return 200, "text/plain", _rpc_dump_status_body()
+    if not native.is_loaded():
         return 200, "text/plain", _NATIVE_UNAVAILABLE
-    return 200, "text/plain", _rpc_dump_status_body()
+    try:
+        every = int(req.query.get("every", "1") or 1)
+    except ValueError:
+        return 400, "text/plain", "every must be an integer\n"
+    try:
+        window_s = float(seconds)
+    except ValueError:
+        return 400, "text/plain", "seconds must be a number\n"
+    directory = req.query.get("dir") or flags_mod.get_flag("rpc_dump_dir")
+
+    def capture(s):
+        rc = native.dump_start(directory, every=max(1, every))
+        if rc == -1:  # an embedder owns the recorder: report, don't take it
+            return ("recorder already armed by the embedder:\n\n"
+                    + _rpc_dump_status_body())
+        if rc != 0:
+            return f"could not start capture under {directory!r}\n"
+        time.sleep(s)
+        native.dump_stop()
+        return _rpc_dump_status_body()
+
+    return _rpc_dump_window.run(window_s, capture)
 
 
 def _list_handler(server, req):

@@ -2,12 +2,14 @@
 Maxer, IntRecorder), the windows and the sampler thread behind
 them, percentiles, the LatencyRecorder of every server method, the
 process variables a server exposes, labelled metrics (MultiDimension),
-the sampling Collector (``bvar.collector``), and the bridge that exposes
-every flag as a variable. The console (brpc_tpu_torch/builtin/console.py) shows
+the sampling Collector (``bvar.collector``), the native runtime's stat
+cells (``register_native_bvars``), and the bridge that exposes every
+flag as a variable. The console (brpc_tpu_torch/builtin/console.py) shows
 them on ``/vars`` and ``/brpc_metrics``."""
 from brpc_tpu_torch.bvar.default_variables import expose_default_variables  # noqa: F401
 from brpc_tpu_torch.bvar.latency_recorder import LatencyRecorder  # noqa: F401
 from brpc_tpu_torch.bvar.multi_dimension import MultiDimension  # noqa: F401
+from brpc_tpu_torch.bvar.native_vars import register_native_bvars  # noqa: F401
 from brpc_tpu_torch.bvar.percentile import Percentile  # noqa: F401
 from brpc_tpu_torch.bvar.reducer import Adder, IntRecorder, Maxer, Reducer  # noqa: F401
 from brpc_tpu_torch.bvar.sampler import force_tick_for_tests  # noqa: F401

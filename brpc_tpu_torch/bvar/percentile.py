@@ -12,6 +12,10 @@ from collections import deque
 from typing import Deque, List
 
 SAMPLES_PER_INTERVAL = 254  # reference: 254 samples per ThreadLocalPercentileSamples
+# the reservoir's draws come from a generator of their own: recorders are
+# updated on server and worker threads, and draws from the global
+# ``random`` would move every seeded sequence of the process
+_rng = random.Random()
 
 
 class _Interval:
@@ -28,7 +32,7 @@ class _Interval:
         if len(self.samples) < SAMPLES_PER_INTERVAL:
             self.samples.append(value)
         else:  # reservoir replacement keeps a uniform sample of the interval
-            i = random.randrange(self.num_added)
+            i = _rng.randrange(self.num_added)
             if i < SAMPLES_PER_INTERVAL:
                 self.samples[i] = value
 

@@ -18,5 +18,10 @@ over hulu_pbrpc, sofa_pbrpc and tpu_std, ``redis_kv``,
 memcache or thrift, ``nshead_extension`` one whose nshead front end
 mcpack2pb_gen writes, and ``rtmp_relay`` relays a live RTMP stream,
 dumps it to FLV and MPEG-TS and pulls it to a second server over the
-digest handshake.
+digest handshake. The native runtime's programs: ``native_client`` (a
+sync call, a done-callback, a deadline, a revived connection),
+``native_protocol_clients`` (gRPC and HTTP through the native clients),
+``usercode_workers`` (handlers in shm worker processes) and
+``io_uring_echo`` (the io_uring datapath and its completion counts);
+``device_performance`` ends with the native bulk lane.
 """

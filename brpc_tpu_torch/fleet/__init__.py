@@ -6,8 +6,8 @@
   multi-window burn rates (``SloEngine``, ``SloObjective``).
 
 The observatory (a stats scrape of every member over the native
-cluster, ``/fleet``) and the autoscaler (a swarm of native servers) wait
-for the native runtime (ROADMAP A12); ``/fleet`` is not served.
+cluster, ``/fleet``) and the autoscaler (a swarm of native servers) are
+not ported yet (ROADMAP A12c); ``/fleet`` is not served.
 """
 from brpc_tpu_torch.fleet import hist
 from brpc_tpu_torch.fleet.slo import SloEngine, SloObjective

@@ -297,12 +297,15 @@ class NamingServiceThread:
                         health_check_interval_s=hc)
                     self._sockets[ep] = sid
                     self._lb.add_server(sid, weight, tag)
+            # a removed node's socket is recycled before the balancer drops
+            # it (the balancer skips a recycled socket meanwhile): whoever
+            # sees the node gone from the balancer finds no socket either
             for ep in [e for e in self._sockets if e not in new_eps]:
                 sid = self._sockets.pop(ep)
-                self._lb.remove_server(sid)
                 s = Socket.address(sid)
                 if s is not None:
                     s.recycle()
+                self._lb.remove_server(sid)
 
     def stop(self):
         """No more refreshes; recycle every socket this thread made."""
@@ -310,10 +313,10 @@ class NamingServiceThread:
             self._stopped = True
             sids, self._sockets = list(self._sockets.values()), {}
         for sid in sids:
-            self._lb.remove_server(sid)
             s = Socket.address(sid)
             if s is not None:
                 s.recycle()
+            self._lb.remove_server(sid)
 
 
 def start_naming_service(url: str, lb, channel_options=None,

@@ -230,10 +230,15 @@ class NativeRuntimeMount:
     def _mount(self):
         from brpc_tpu_torch import rpcz  # noqa: F401  (the rpcz flags)
         from brpc_tpu_torch.butil import flags
+        from brpc_tpu_torch.bvar.native_vars import register_native_bvars
         from brpc_tpu_torch.rpc.input_messenger import InputMessenger
         from brpc_tpu_torch.rpc.protocol import list_server_protocols
 
         self.io_uring = native.use_io_uring(True) == 1
+        # one pane of glass: the C++ stat cells become variables (/vars,
+        # /status, /brpc_metrics), and sampled native spans drain into
+        # /rpcz
+        register_native_bvars()
         if flags.get_flag("enable_rpcz"):
             native.stats_enable_spans(max(1, flags.get_flag("rpcz_sample_every")))
         # every registered protocol on the raw lane: the native port keeps

@@ -15,8 +15,10 @@ written, by a thread of their own, to a ``SpanDB`` of recordio files in
 two generations, where ``find_trace`` looks for what left the memory.
 ``enable_rpcz`` is on by default, as in the reference.
 
-``drain_native_spans`` is not ported yet (ROADMAP A12b): it finds
-nothing and returns 0, as the reference's does without its runtime.
+``drain_native_spans`` files the spans that a native runtime of this
+process sampled (``use_native_runtime``), each with its parse, dispatch
+and write times; a native client call made under ``native.trace_scope``
+carries the caller's ids, so its server's span chains under the caller.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import time
 from collections import deque
 from typing import Deque, List, Optional
 
+from brpc_tpu_torch import native
 from brpc_tpu_torch.butil import flags
 from brpc_tpu_torch.butil.recordio import RecordReader, RecordWriter
 
@@ -43,6 +46,10 @@ flags.define_int("rpcz_database_max_spans", 200000,
                  "rotate the on-disk SpanDB past this many spans")
 
 _tls = threading.local()
+# span and trace ids come from a generator of their own: spans open on
+# server and timer threads, and draws from the global ``random`` would
+# move every seeded sequence of the process
+_ids = random.Random()
 
 
 class Span:
@@ -56,8 +63,8 @@ class Span:
                  parent_span_id: int = 0, log_id: int = 0):
         self.kind = kind  # "server" | "client"
         self.full_method = full_method
-        self.trace_id = trace_id or random.getrandbits(63)
-        self.span_id = random.getrandbits(63)
+        self.trace_id = trace_id or _ids.getrandbits(63)
+        self.span_id = _ids.getrandbits(63)
         self.parent_span_id = parent_span_id
         self.remote_side = None
         self.start_time = time.time()
@@ -296,9 +303,46 @@ def _submit(span: Span):
 
 
 def drain_native_spans() -> int:
-    """The spans of calls the native runtime handled (not drained yet:
-    ROADMAP A12b)."""
-    return 0
+    """File the spans the native runtime sampled (its bounded ring) with
+    the Python spans, so /rpcz shows natively handled calls beside the
+    Python lanes, with their parse, dispatch and write annotations.
+    Native sampling already took one in ``rpcz_sample_every``. Reads only
+    a library this process has loaded (queue C #38). Returns how many."""
+    if not native.is_loaded():
+        return 0
+    recs = native.stats_drain_spans(4096)
+    if not recs:
+        return 0
+    # the spans' CLOCK_MONOTONIC ns onto wall time
+    offset = time.time() - native.stats_now_ns() / 1e9
+    for r in recs:
+        kind = "client" if r["lane"] == "client" else "server"
+        span = Span(kind, r["method"] or f"native.{r['lane']}",
+                    trace_id=r["trace_id"],
+                    parent_span_id=r["parent_span_id"])
+        span.span_id = r["span_id"]
+        span.remote_side = f"native:{r['lane']}/sock={r['sock_id']}"
+        span.start_time = offset + r["recv_ns"] / 1e9
+        span.end_time = offset + r["write_ns"] / 1e9
+        span.error_code = r["error_code"]
+        span.request_size = r["req_bytes"]
+        span.response_size = r["resp_bytes"]
+        span.annotations = [
+            (offset + r["parse_ns"] / 1e9, "native parse done"),
+            (offset + r["dispatch_ns"] / 1e9, "native usercode done"),
+            (offset + r["write_ns"] / 1e9, "native response queued"),
+        ]
+        with _spans_lock:
+            _spans.append(span)
+        # into the SpanDB too: find_trace looks there for what left the
+        # memory's window
+        try:
+            db = _get_span_db()
+        except OSError:
+            continue
+        if db is not None:
+            db.append(span)
+    return len(recs)
 
 
 def recent_spans(limit: int = 100) -> List[Span]:
@@ -328,6 +372,9 @@ def find_trace(trace_id: int) -> List[Span]:
 
 
 def clear_for_tests():
+    # the native ring too: its old records must not come back later
+    if native.is_loaded():
+        native.stats_drain_spans(4096)
     with _spans_lock:
         _spans.clear()
         _counter[0] = 0

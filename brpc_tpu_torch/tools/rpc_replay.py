@@ -4,13 +4,20 @@ Port of tools/rpc_replay.py (the counterpart of brpc's tools/rpc_replay):
 reads the recordio files that the ``rpc_dump`` flag writes (either
 package's: the format is the same) and re-issues each sampled request
 through a Channel, optionally qps-throttled. Records of another lane than
-``echo`` (tpu_std) are skipped. ``--native`` (the reference's native
-replay client) is not ported yet (ROADMAP A12b): it is refused with exit
-code 2.
+``echo`` (tpu_std) are skipped.
+
+``--native`` fires the capture (the native flight recorder's, from
+``/rpc_dump?seconds=N``, or the Python lane's) through the native client
+lanes instead (``native.replay_run``): tpu_std, HTTP and gRPC records
+each by its own lane, from ``--concurrency`` threads, paced at ``--qps``
+(ramped to ``--qps-to``) or pressed, with latency quantiles. A capture
+with nothing to replay, or a server that cannot be reached, is refused
+with exit code 2.
 
 Usage:
   python -m brpc_tpu_torch.tools.rpc_replay --dir ./rpc_dump \\
-      --server 127.0.0.1:8000 [--qps 100] [--times 1]
+      --server 127.0.0.1:8000 [--qps 100] [--times 1] \\
+      [--native [--qps-to 500] [--concurrency 8]]
 """
 from __future__ import annotations
 
@@ -29,14 +36,17 @@ def main(argv=None) -> int:
     ap.add_argument("--times", type=int, default=1)
     ap.add_argument("--timeout-ms", type=float, default=1000)
     ap.add_argument("--native", action="store_true",
-                    help="the native replay client: not in the port")
+                    help="replay through the native client lanes "
+                         "(nat_replay_run)")
+    ap.add_argument("--qps-to", type=float, default=0,
+                    help="with --native: ramp the rate linearly from "
+                         "--qps to this across the run")
+    ap.add_argument("--concurrency", type=int, default=4,
+                    help="with --native: worker threads firing calls")
     args = ap.parse_args(argv)
 
     if args.native:
-        print("rpc_replay: --native needs the native runtime "
-              "(nat_replay_run), which brpc_tpu_torch does not have",
-              file=sys.stderr)
-        return 2
+        return _native_replay(args)
 
     from brpc_tpu_torch import rpc
     from brpc_tpu_torch.butil.recordio import RecordReader
@@ -81,6 +91,26 @@ def main(argv=None) -> int:
     print(f"replayed ok={ok} failed={fail} skipped={skipped} "
           f"in {dt:.1f}s ({(ok + fail) / max(dt, 1e-9):.1f} qps)")
     return 1 if fail else 0
+
+
+def _native_replay(args) -> int:
+    from brpc_tpu_torch import native
+
+    ip, _, port = args.server.rpartition(":")
+    try:
+        res = native.replay_run(ip or "127.0.0.1", int(port), args.dir,
+                                times=args.times, qps=args.qps,
+                                qps_to=args.qps_to,
+                                concurrency=args.concurrency,
+                                timeout_ms=int(args.timeout_ms))
+    except (ValueError, ConnectionError) as e:
+        print(f"rpc_replay: {e}", file=sys.stderr)
+        return 2
+    print(f"replayed ok={res['ok']} failed={res['failed']} "
+          f"skipped={res['skipped']} in {res['seconds']:.1f}s "
+          f"({res['qps']:.1f} qps) "
+          f"p50={res['p50_us']:.0f}us p99={res['p99_us']:.0f}us")
+    return 1 if res["failed"] else 0
 
 
 if __name__ == "__main__":

@@ -170,9 +170,11 @@ unavailable, or when the port is not beside it:
             back bit-equal, the peer's windows, pool and card memory at rest
             after. (b) ``device_performance`` as the reference writes it:
             host bytes on the in-process ticket lane, no card memory
-            allocated (it never touches the card); then its pushers at the
-            peer, 4 threads x 8 MiB x 16 pushes over shm, every push on the
-            peer's card, 0 errors: avg, p99 and GB/s. (c) ``rpc_press`` at
+            allocated (it never touches the card), its native bulk half
+            deferred to 20b (19a times the library's build); then its
+            pushers at the peer, 4 threads x 8 MiB x 16 pushes over shm,
+            every push on the peer's card, 0 errors: avg, p99 and GB/s.
+            (c) ``rpc_press`` at
             the peer's EchoService for 3 s with 4 threads unthrottled, at
             ``--qps 200`` (within 10%, 0 errors), and 1 s over HTTP. (e)
             ``rpc_view`` of the peer's /vars: TensorStore_Push_count moved
@@ -320,6 +322,34 @@ unavailable, or when the port is not beside it:
             peer stops under 16 pushing connections: every call answered
             or refused with the reference's codes, no lease, record, span,
             worker or ``/dev/shm`` segment left, every peer exits 0.
+20. native observability and client lanes — two ``--peer19 --native``
+            peers (one with the native builtin echo), started beside phase
+            19's. (a) From this process's native clients: ``channel_call``
+            and ``channel_acall`` Echo, a 150 ms deadline on a stalled call
+            (1008), HTTP GET /status and a JSON Echo POST, gRPC Echo; the
+            four native examples through ``main(argv)`` in children. (b)
+            ``rpc_client_bench`` (16 connections x 32 fibers, 16 B, 2 s)
+            against the native Python lane and the native echo, beside
+            19c's rate from 16 Python connections; the native bulk lane of
+            ``device_performance`` at 8 MiB. (c) Another process pushes the
+            activations by ring onto the first peer's card, bytes checked,
+            while C++ clients press the second; the pushes counted by the
+            peer; the ``nat_*`` counters on ``/vars`` and ``/brpc_metrics``
+            moved by the calls the clients counted; the native section of
+            ``/status``; one native ``/connections`` row per open client
+            connection; a call under ``trace_scope`` chained through its
+            client span to a native server span in ``/rpcz``;
+            ``/hotspots/native`` with native frames, the native lock
+            section of ``/hotspots/contention``, ``/heap/native`` and
+            ``/growth/native`` with sites and bytes. (d)
+            ``/rpc_dump?seconds=2`` during a tpu_std, HTTP, gRPC and push
+            mix, replayed by ``rpc_replay --native``: records loaded =
+            captured, the pushes failing as queue C #16 says. (e) A
+            constant:4 limiter under 32 calls (2004 past the limit, in
+            flight <= 4); a second port taking a push onto the card, then
+            removed; a seeded fault spec, faults = failed calls;
+            ``server_draining`` during the graceful stop; no lease, record,
+            segment or worker left.
 
 The last line is the result: {"ok": true, "device": {...}}.
 """
@@ -3238,6 +3268,26 @@ def transport_at_peer(ctl, devch, gen, tag: str) -> dict:
     return out
 
 
+NATIVE_DEFERRED = "run in phase 20b (phase 19a times the library's build)"
+
+
+@contextlib.contextmanager
+def native_half_deferred():
+    """device_performance's native bulk half, refused here: its server
+    would build the native library before phase 19a times the build; 20b
+    runs it."""
+    from brpc_tpu_torch import native
+
+    def refuse(*args, **kw):
+        raise native.NativeUnavailable(NATIVE_DEFERRED)
+
+    start, native.rpc_server_start = native.rpc_server_start, refuse
+    try:
+        yield
+    finally:
+        native.rpc_server_start = start
+
+
 def pushers_example(port: int, ctl, tag: str) -> dict:
     """14b: device_performance as the reference writes it (host bytes,
     in process: the card is not touched), then its pushers at the peer,
@@ -3247,7 +3297,8 @@ def pushers_example(port: int, ctl, tag: str) -> dict:
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    rc, lines, secs = run_main(device_performance.main, [])
+    with native_half_deferred():
+        rc, lines, secs = run_main(device_performance.main, [])
     torch.cuda.synchronize()
     mem1 = torch.cuda.max_memory_allocated()
     lanes1 = dt.lane_counters()
@@ -3257,7 +3308,7 @@ def pushers_example(port: int, ctl, tag: str) -> dict:
     check(moved == {"inproc": 16}, f"14b: the example moved {moved}")
     check(mem1 == mem0, f"14b: card memory {mem0} B, at most {mem1} B "
           f"while device_performance ran")
-    check(lines[-1].startswith("native bulk lane unavailable: "),
+    check(lines[-1] == f"native bulk lane unavailable: {NATIVE_DEFERRED}",
           f"14b: {lines[-1]}")
     out = {"example": {"seconds": secs, "lines": lines[:3],
                        "card_bytes_allocated": mem1 - mem0}}
@@ -5267,7 +5318,7 @@ class Control19(Service):
               "memory_allocated": torch.cuda.memory_allocated(),
               "workers": mount.shm_worker_pids() if mount else [],
               "io_uring": bool(mount.io_uring) if mount else None}
-        st["spans"] = (native.res_stats()["shm.span"]["live_bytes"]
+        st["spans"] = (native.res_live_bytes("shm.span")
                        if native.available() else 0)
         return st
 
@@ -5297,8 +5348,29 @@ class Control19(Service):
             self.stop_at = time.monotonic()
             self.stopper = threading.Thread(target=self.srv.stop, daemon=True)
             self.stopper.start()
+        elif op["op"] == "native":  # phase 20: a call of this peer's library
+            out = {"result": getattr(native, op["fn"])(*op.get("args", []))}
+        elif op["op"] == "watch":  # phase 20: in flight and draining, sampled
+            self.watch = {"inflight_max": 0, "draining": False}
+            threading.Thread(target=self._watch, args=(op["s"],),
+                             daemon=True).start()
+        elif op["op"] == "watched":
+            out = self.watch
         response.message = json.dumps(out)
         done()
+
+    watch = None
+
+    def _watch(self, seconds: float):
+        from brpc_tpu_torch import native
+
+        end = time.monotonic() + seconds
+        while time.monotonic() < end:
+            w = self.watch
+            w["inflight_max"] = max(w["inflight_max"],
+                                    native.rpc_server_inflight())
+            w["draining"] = w["draining"] or native.server_draining()
+            time.sleep(0.002)
 
 
 def peer19_main(argv) -> int:
@@ -5347,6 +5419,7 @@ def peer19_main(argv) -> int:
     st["worker_pids_before"] = pids
     st["segments"] = sorted(glob.glob(f"{SHM_DIR}/brpc_tpu_torch_lane_"
                                       f"{os.getpid()}_*"))
+    st["watch"] = ctl.watch
     print("peer state " + json.dumps(st), flush=True)
     return 0
 
@@ -5555,11 +5628,12 @@ from brpc_tpu_torch.rpc.tensor_service import TensorClient, make_device_channel
 gen = torch.Generator(device="cuda").manual_seed(19)
 x = torch.randn((4, 512, 2048), dtype=torch.bfloat16, device="cuda",
                 generator=gen)
+pushes = int(sys.argv[1])
 port = int(sys.stdin.readline())  # started early: CUDA is up by now
 client = TensorClient(make_device_channel(f"127.0.0.1:{port}"))
 lanes0 = dt.lane_counters()
 ok = []
-for i in range(4):
+for i in range(pushes):
     cntl, resp = client.push("ring19c", [x])
     pc, got = client.pull("ring19c", device="cuda")
     ok.append(not cntl.failed() and resp.ok and not pc.failed()
@@ -5571,13 +5645,14 @@ print(json.dumps({"ok": ok, "lanes": {k: lanes[k] - lanes0[k] for k in lanes}}))
 """
 
 
-def spawn_ring_client_19():
-    """19c's pusher: a process of its own (a process pushes by ring to one
-    segment), told the native peer's port on its stdin."""
+def spawn_ring_client_19(pushes: int = 4):
+    """19c's pusher (and 20c's): a process of its own (a process pushes by
+    ring to one segment), told the native peer's port on its stdin."""
     here = os.path.dirname(os.path.abspath(__file__))
-    return subprocess.Popen([sys.executable, "-c", RING_CLIENT_19],
-                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, cwd=here)
+    return subprocess.Popen(
+        [sys.executable, "-c", RING_CLIENT_19, str(pushes)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=here)
 
 
 def native_serve_19(n1: int, n2: int, ctl1: Channel, ring_client,
@@ -5882,6 +5957,532 @@ def phase_native(tag: str, gen, lanes: dict, std_press: dict) -> dict:
     return result
 
 
+# -- phase 20: the native runtime's observability and client lanes ---------------
+
+NATIVE20_S = 60          # the phase's budget, checked at its end
+BENCH_S_20 = 2.0         # each rpc_client_bench
+BENCH_CONNS_20, BENCH_FIBERS_20 = 16, 32
+RING_PUSHES_20 = 8       # the activations, by ring, from another process
+MIX_20 = 12              # rounds of tpu_std + HTTP + gRPC during the capture
+LIMIT_20, PRESS_20 = 4, 32
+FAULT_SPEC_20 = "seed=7;write:err=EPIPE:p=0.25"
+FAULT_CALLS_20 = 40
+EXAMPLES_20 = {"native_client": [], "native_protocol_clients": [],
+               "usercode_workers": [], "io_uring_echo": ["--seconds", "0.5"]}
+
+def spawn_phase20():
+    """Phase 20's processes, started beside phase 19's so that their CUDA
+    start overlaps the library's build: a native peer (Python lane), a
+    native peer with the builtin echo, and the ring pusher."""
+    return {"a": spawn_peer19("--native"),
+            "b": spawn_peer19("--native", "--builtin-echo"),
+            "pusher": spawn_ring_client_19(RING_PUSHES_20)}
+
+
+def nat20(ch: Channel, fn: str, *args):
+    """A call of the peer's own native library, through its control."""
+    return ctl19(ch, "native", fn=fn, args=list(args))["result"]
+
+
+def _echo_bytes(msg: str, **kw) -> bytes:
+    return wire.EchoRequest(message=msg, **kw).SerializeToString()
+
+
+def _echo_of(body: bytes) -> str:
+    m = wire.EchoResponse()
+    m.ParseFromString(body)
+    return m.message
+
+
+def _acalls_20(port: int, reqs, timeout_ms: int = 10000) -> list:
+    """Each request body as an async EchoService.Echo on a native
+    connection of its own; the codes in order."""
+    from brpc_tpu_torch import native
+
+    chans = [native.channel_open("127.0.0.1", port, connect_timeout_ms=5000)
+             for _ in reqs]
+    codes, ev, lock = {}, threading.Event(), threading.Lock()
+
+    def make(i):
+        def done(code, resp):
+            with lock:
+                codes[i] = code
+                if len(codes) == len(reqs):
+                    ev.set()
+        return done
+
+    try:
+        for i, body in enumerate(reqs):
+            check(native.channel_acall(chans[i], "EchoService", "Echo", body,
+                                       make(i), timeout_ms=timeout_ms) == 0,
+                  "20: channel_acall")
+        check(ev.wait(60), "20: async calls answered")
+    finally:
+        for c in chans:
+            native.channel_close(c)
+    return [codes[i] for i in range(len(reqs))]
+
+
+def native_clients_20(pa: int, pb: int, tag: str) -> dict:
+    """20a: this process's native clients against both peers."""
+    from brpc_tpu_torch import native
+
+    out = {}
+    ch = native.channel_open("127.0.0.1", pb, connect_timeout_ms=5000)
+    try:
+        rc, body, err = native.channel_call(ch, "EchoService", "Echo",
+                                            _echo_bytes("sync20"),
+                                            timeout_ms=5000)
+        check(rc == 0 and _echo_of(body) == "sync20", f"20a sync: {rc} {err}")
+        got, ev = [], threading.Event()
+        check(native.channel_acall(ch, "EchoService", "Echo",
+                                   _echo_bytes("async20"),
+                                   lambda c, r: (got.append((c, r)), ev.set()),
+                                   timeout_ms=5000) == 0, "20a acall")
+        check(ev.wait(10) and got[0][0] == 0 and _echo_of(got[0][1])
+              == "async20", f"20a async: {got}")
+    finally:
+        native.channel_close(ch)
+    ch = native.channel_open("127.0.0.1", pa, connect_timeout_ms=5000)
+    try:
+        t0 = time.perf_counter()
+        rc, _, err = native.channel_call(
+            ch, "EchoService", "Echo", _echo_bytes("stall", sleep_us=600000),
+            timeout_ms=150)
+        out["deadline_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+        check(rc == errors.ERPCTIMEDOUT, f"20a deadline: {rc} {err}")
+    finally:
+        native.channel_close(ch)
+    h = native.channel_open_http("127.0.0.1", pa, connect_timeout_ms=5000)
+    g = native.channel_open_grpc("127.0.0.1", pa, connect_timeout_ms=5000)
+    try:
+        code, body = native.http_call(h, "GET", "/status", timeout_ms=10000)
+        check(code == 200 and b"EchoService" in body, f"20a GET /status {code}")
+        code, body = native.http_call(
+            h, "POST", "/EchoService/Echo", body=b'{"message": "http20"}',
+            headers="Content-Type: application/json\r\n", timeout_ms=10000)
+        check(code == 200 and json.loads(body)["message"] == "http20",
+              f"20a POST: {code} {body[:200]}")
+        st, body, msg = native.grpc_call(g, "/EchoService/Echo",
+                                         _echo_bytes("grpc20"),
+                                         timeout_ms=10000)
+        check(st == 0 and _echo_of(body) == "grpc20", f"20a gRPC: {st} {msg}")
+    finally:
+        native.channel_close(h)
+        native.channel_close(g)
+    print(f"native/20a: this process's native clients: sync and async Echo, "
+          f"a 150 ms deadline answered 1008 after {out['deadline_ms']} ms, "
+          f"HTTP GET /status and a JSON POST, gRPC Echo, every body right "
+          f"{tag}")
+    return out
+
+
+def spawn_examples_20() -> dict:
+    here = os.path.dirname(os.path.abspath(__file__))
+    return {name: subprocess.Popen(
+        [sys.executable, "-c",
+         f"import sys; from brpc_tpu_torch.examples import {name}; "
+         f"sys.exit({name}.main({argv!r}))"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here)
+        for name, argv in EXAMPLES_20.items()}
+
+
+def finish_examples_20(procs: dict, tag: str) -> dict:
+    """20a: the four native examples exited 0 with their last line."""
+    last = {}
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        check(p.returncode == 0, f"20a example {name}: {p.returncode} "
+                                 f"{err[-2000:]}")
+        last[name] = out.strip().splitlines()[-1]
+    check(last["native_client"] == "OK" and last["native_protocol_clients"]
+          == "ok" and last["usercode_workers"] == "ok", f"20a: {last}")
+    print(f"native/20a: native_client, native_protocol_clients, "
+          f"usercode_workers and io_uring_echo exited 0 "
+          f"(io_uring_echo: {last['io_uring_echo']!r}) {tag}")
+    return last
+
+
+def bench_20(pa: int, pb: int, ctlb: Channel, press19: dict, tag: str) -> dict:
+    """20b: Echo from C++ (rpc_client_bench) against the native Python lane
+    and the native echo, beside 19c's rate from 16 Python connections; the
+    peer's counters moved by the requests the bench counted."""
+    from brpc_tpu_torch import native
+
+    def bench(port):
+        return native.rpc_client_bench("127.0.0.1", port, BENCH_CONNS_20,
+                                       BENCH_FIBERS_20, BENCH_S_20, 16)
+
+    out = {"native_python_lane": bench(pa)}
+    before = nat20(ctlb, "stats_counters")
+    out["native_builtin_echo"] = bench(pb)
+    after = nat20(ctlb, "stats_counters")
+    n = out["native_builtin_echo"]["requests"]
+    moved = {k: after[k] - before[k] for k in ("nat_tpu_std_msgs_in",
+                                               "nat_tpu_std_responses_out")}
+    # tpu_std messages in: the bench's and the control call that read the
+    # counters after it; natively answered: the bench's alone
+    check(n > 0 and moved == {"nat_tpu_std_msgs_in": n + 1,
+                              "nat_tpu_std_responses_out": n},
+          f"20c: the peer counted {moved}, the bench {n}")
+    res = device_performance.native_bulk(8)
+    check(res.get("bytes", 0) > 0, "20b: the native bulk lane moved nothing")
+    py = {k: press19[k]["qps"] for k in ("native_python_lane",
+                                         "native_builtin_echo")}
+    print(f"native/20b: Echo from C++ ({BENCH_CONNS_20} connections x "
+          f"{BENCH_FIBERS_20} fibers, 16 B, {BENCH_S_20} s): native Python "
+          f"lane {out['native_python_lane']['qps']:.1f} qps, native echo "
+          f"{out['native_builtin_echo']['qps']:.1f} qps; 19c from 16 Python "
+          f"connections: {py['native_python_lane']} and "
+          f"{py['native_builtin_echo']} qps; native bulk lane at 8 MiB "
+          f"{res['GBps']:.3f} GB/s {tag}")
+    out.update(counted=moved, bulk=res, python_19c=py)
+    return out
+
+
+def _page(port: int, path: str) -> str:
+    status, _, body, _ = http_get(port, path)
+    check(status == 200, f"20: {path} answered {status}")
+    return body.decode()
+
+
+def _page_at_least(port: int, path: str, pattern: str, want: int) -> int:
+    """The number the page shows, once it reached ``want`` (the console
+    reads snapshots kept 0.25 s: the first read may predate the calls)."""
+    end, reads = time.monotonic() + 20, 0
+    while True:
+        m = re.search(pattern, _page(port, path), re.M)
+        reads += 1
+        if m and int(m[1]) >= want:
+            return int(m[1])
+        check(reads < 3 or time.monotonic() < end,
+              f"20c: {path} shows {m and m[1]}, want >= {want}")
+        time.sleep(0.1)
+
+
+def counts_20(pa: int, pb: int, ctla: Channel, ctlb: Channel, pusher,
+              tag: str) -> dict:
+    """20c: ring pushes onto the card under C++ load, and the peer's
+    counters, pages, spans and native profiles against that traffic."""
+    from brpc_tpu_torch import native
+
+    pushes0 = ctl19(ctla, "state")["pushes"]
+    load = {}
+    loader = threading.Thread(target=lambda: load.update(
+        native.rpc_client_bench("127.0.0.1", pb, BENCH_CONNS_20,
+                                BENCH_FIBERS_20, 4.0, 16)), daemon=True)
+    loader.start()
+    pages = {}
+    profiler = threading.Thread(target=lambda: pages.update(
+        {p: _page(pb, p) for p in ("/hotspots/native?seconds=1",
+                                   "/hotspots/contention?seconds=1",
+                                   "/heap/native?seconds=0.5",
+                                   "/heap/native",
+                                   "/growth/native?seconds=0.5")}),
+        daemon=True)
+    profiler.start()
+    out, err = pusher.communicate(f"{pa}\n", timeout=120)
+    check(pusher.returncode == 0, f"20c ring pusher: {err[-2000:]}")
+    ring = json.loads(out.strip().splitlines()[-1])
+    loader.join(60)
+    profiler.join(60)
+    check(all(ring["ok"]) and len(ring["ok"]) == RING_PUSHES_20
+          and ring["lanes"]["ring"] == RING_PUSHES_20
+          and ring["lanes"]["shm"] == ring["lanes"]["wire"] == 0,
+          f"20c: ring pushes {ring}")
+    st = ctl19(ctla, "state")
+    check(st["pushes"] - pushes0 == RING_PUSHES_20
+          and st["fabric"]["held_records"] == 0
+          and st["fabric"]["live_leases"] == 0,
+          f"20c: the peer counted {st['pushes'] - pushes0} pushes, "
+          f"fabric {st['fabric']}")
+    uring = nat20(ctla, "ring_counters")
+    check(load.get("requests", 0) > 0, "20c: the load ran")
+    # the counters on the pages, moved by what the clients counted
+    snap = nat20(ctlb, "stats_counters")
+    n_vars = _page_at_least(pb, "/vars/nat_tpu_std_msgs_in",
+                            r"^nat_tpu_std_msgs_in : (\d+)$",
+                            snap["nat_tpu_std_msgs_in"])
+    n_prom = _page_at_least(pb, "/brpc_metrics",
+                            r'^nat_method_count\{lane="echo",'
+                            r'method="EchoService\.Echo"\} (\d+)$',
+                            snap["nat_tpu_std_responses_out"])
+    status = _page(pb, "/status")
+    check("native runtime:" in status and "tpu_std: in=" in status,
+          "20c: /status without its native section")
+    # one native /connections row per client connection
+    rows0 = len(nat20(ctlb, "conn_snapshot"))
+    chans = [native.channel_open("127.0.0.1", pb, connect_timeout_ms=5000)
+             for _ in range(5)]
+    try:
+        for c in chans:
+            check(native.channel_call(c, "EchoService", "Echo", b"",
+                                      timeout_ms=5000)[0] == 0, "20c echo")
+        conns = _page(pb, "/connections")
+        srv_rows = [ln for ln in conns.splitlines() if "|srv   |" in ln]
+        rows1 = len(nat20(ctlb, "conn_snapshot"))
+    finally:
+        for c in chans:
+            native.channel_close(c)
+    check(rows1 - rows0 == 5 and len(srv_rows) >= 5,
+          f"20c: /connections rows {rows0} -> {rows1} for 5 connections")
+    # a call under trace_scope: caller span -> client span -> server span
+    trace_id, parent = 0x20C0FFEE, 0x2002
+    native.stats_enable_spans(1)
+    ch = native.channel_open("127.0.0.1", pb, connect_timeout_ms=5000)
+    try:
+        with native.trace_scope(trace_id, parent):
+            rc = native.channel_call(ch, "EchoService", "Echo",
+                                     _echo_bytes("traced"), timeout_ms=5000)[0]
+    finally:
+        native.channel_close(ch)
+        native.stats_enable_spans(0)
+    mine = [s for s in rpcz.find_trace(trace_id) if s.kind == "client"]
+    check(rc == 0 and len(mine) == 1 and mine[0].parent_span_id == parent,
+          f"20c: the client span {[(s.kind, s.parent_span_id) for s in mine]}")
+    rpcz_page = _page(pb, f"/rpcz?trace_id={trace_id:x}")
+    check(f"parent={mine[0].span_id:016x} [server] EchoService.Echo"
+          in rpcz_page and "native parse done" in rpcz_page
+          and "native response queued" in rpcz_page,
+          f"20c: /rpcz?trace_id without the native server span under the "
+          f"client span {mine[0].span_id:016x}: {rpcz_page[:500]}")
+    # the native profiles under load
+    hot = pages["/hotspots/native?seconds=1"]
+    m = re.match(r"# nat_prof: (\d+) samples", hot)
+    check(m and int(m[1]) > 0 and ("nat_" in hot or "brpc_tpu::" in hot),
+          f"20c: /hotspots/native {hot[:300]}")
+    cont = pages["/hotspots/contention?seconds=1"]
+    check(cont.startswith("# native lock contention")
+          and "# python wait-frame profile" in cont,
+          f"20c: /hotspots/contention {cont[:300]}")
+    heap = re.search(r"# nat_res heap: (\d+) sites, (\d+) bytes live",
+                     pages["/heap/native"])
+    growth = re.search(r"# nat_res growth: (\d+) growing sites, (-?\d+) "
+                       r"bytes grown", pages["/growth/native?seconds=0.5"])
+    check(heap and int(heap[1]) > 0 and int(heap[2]) > 0 and growth,
+          f"20c: /heap/native {pages['/heap/native'][:300]} /growth/native "
+          f"{pages['/growth/native?seconds=0.5'][:300]}")
+    out = {"ring_pushes": RING_PUSHES_20, "peer_pushes": st["pushes"] - pushes0,
+           "io_uring_completions": uring, "load_qps": load["qps"],
+           "vars": n_vars, "metrics_echo_row": n_prom,
+           "conn_rows": [rows0, rows1], "samples": int(m[1]),
+           "heap_sites": int(heap[1]), "heap_bytes": int(heap[2]),
+           "growth_sites": int(growth[1])}
+    print(f"native/20c: {RING_PUSHES_20} ring pushes of the activations "
+          f"landed on the peer's card bit-equal under C++ load "
+          f"({load['qps']:.1f} qps on the other peer), counted by the peer "
+          f"({out['peer_pushes']}; io_uring completions {uring}, epoll "
+          f"serving where 0); /vars nat_tpu_std_msgs_in {n_vars} and "
+          f"/brpc_metrics' EchoService.Echo row {n_prom} against the "
+          f"peer's counters; /status's native section; /connections rows "
+          f"{rows0} -> {rows1} for 5 connections; a traced call's native "
+          f"server span under its client span under {parent:#x}; "
+          f"/hotspots/native {out['samples']} samples with native frames, "
+          f"the native lock section, /heap/native {out['heap_sites']} sites "
+          f"{out['heap_bytes']} B, /growth/native {out['growth_sites']} "
+          f"growing sites {tag}")
+    return out
+
+
+def capture_20(pa: int, ctla: Channel, tag: str) -> dict:
+    """20d: the peer's native recorder for 2 s under a tpu_std, HTTP, gRPC
+    and push mix, replayed by ``rpc_replay --native``."""
+    from brpc_tpu_torch import native
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_native_dump_")
+    page = {}
+    window = threading.Thread(target=lambda: page.update(body=_page(
+        pa, f"/rpc_dump?seconds=2&dir={directory}")), daemon=True)
+    window.start()
+    _wait(lambda: nat20(ctla, "dump_running"), 10, "20d: the capture window")
+    chans = (native.channel_open("127.0.0.1", pa, connect_timeout_ms=5000),
+             native.channel_open_http("127.0.0.1", pa,
+                                      connect_timeout_ms=5000),
+             native.channel_open_grpc("127.0.0.1", pa,
+                                      connect_timeout_ms=5000))
+    plain = Channel()
+    check(plain.init(f"127.0.0.1:{pa}") == 0, "20d plain channel")
+    try:
+        ch, h, g = chans
+        for i in range(MIX_20):
+            check(native.channel_call(ch, "EchoService", "Echo",
+                                      _echo_bytes(f"m{i}"),
+                                      timeout_ms=5000)[0] == 0, "20d tpu_std")
+            check(native.http_call(h, "POST", "/EchoService/Echo",
+                                   body=b'{"message": "h"}',
+                                   headers="Content-Type: application/json"
+                                           "\r\n", timeout_ms=5000)[0] == 200,
+                  "20d HTTP")
+            check(native.grpc_call(g, "/EchoService/Echo", _echo_bytes("g"),
+                                   timeout_ms=5000)[0] == 0, "20d gRPC")
+        client = TensorClient(plain)
+        x = torch.arange(1 << 14, dtype=torch.int32, device="cuda")
+        for i in range(2):  # by wire: the tensors ride the attachment
+            cntl, resp = client.push(f"dump20.{i}", [x])
+            check(not cntl.failed() and resp.ok, "20d push")
+    finally:
+        for c in chans:
+            native.channel_close(c)
+        plain.close()
+    window.join(30)
+    st = nat20(ctla, "dump_status")
+    files = sorted(glob.glob(os.path.join(directory, "*.rio")))
+    check(not st["running"] and st["written"] > 0 and files
+          and "native recorder: stopped" in page.get("body", ""),
+          f"20d: the window {st} {files}")
+    res = native.replay_run("127.0.0.1", pa, directory, concurrency=4,
+                            timeout_ms=5000)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = rpc_replay.main(["--dir", directory, "--server",
+                                f"127.0.0.1:{pa}", "--native",
+                                "--concurrency", "4"])
+    check(res["loaded"] == st["written"] and res["ok"] >= 3 * MIX_20
+          and res["ok"] + res["failed"] + res["skipped"] == res["loaded"],
+          f"20d: replay {res} of {st}")
+    shutil.rmtree(directory, ignore_errors=True)
+    out = {"captured": st["written"], "samples": st["samples"],
+           "oversize": st["oversize"], "drops": st["drops"],
+           "replay": {k: res[k] for k in ("loaded", "ok", "failed",
+                                          "skipped")},
+           "tool_exit": code, "tool": buf.getvalue().strip()}
+    print(f"native/20d: /rpc_dump?seconds=2 captured {st['written']} records "
+          f"(samples {st['samples']}, oversize {st['oversize']}, drops "
+          f"{st['drops']}) from {MIX_20} rounds of tpu_std, HTTP and gRPC "
+          f"and 2 wire pushes; replayed natively: loaded {res['loaded']}, "
+          f"ok {res['ok']}, failed {res['failed']} (a push's tensors are not "
+          f"recorded, queue C #16), skipped {res['skipped']}; rpc_replay "
+          f"--native exited {code}: {out['tool']} {tag}")
+    return out
+
+
+def server_calls_20(pa: int, ctla: Channel, tag: str) -> dict:
+    """20e: the limiter, a second port, a seeded fault spec."""
+    from brpc_tpu_torch import native
+
+    out = {}
+    nat20(ctla, "rpc_server_limiter", f"constant:{LIMIT_20}")
+    ctl19(ctla, "watch", s=10)
+    codes = _acalls_20(pa, [_echo_bytes("lim", sleep_us=200000)] * PRESS_20)
+    watched = ctl19(ctla, "watched")
+    out["limit"] = nat20(ctla, "rpc_server_limit")
+    nat20(ctla, "rpc_server_limiter", "")
+    hist = {c: codes.count(c) for c in sorted(set(codes))}
+    check(out["limit"] == LIMIT_20 and set(hist) == {0, errors.ELIMIT}
+          and hist[0] >= LIMIT_20 and watched["inflight_max"] <= LIMIT_20,
+          f"20e: limit {out['limit']}, codes {hist}, in flight at most "
+          f"{watched['inflight_max']}")
+    out.update(codes=hist, inflight_max=watched["inflight_max"])
+    # a second port: a push onto the card, then refused once removed
+    p2 = nat20(ctla, "rpc_server_add_port", "127.0.0.1", 0)
+    plain = Channel()
+    check(plain.init(f"127.0.0.1:{p2}") == 0, "20e second port channel")
+    try:
+        client = TensorClient(plain)
+        x = torch.randn((1 << 18,), device="cuda")
+        cntl, resp = client.push("port20", [x])
+        pc, got = client.pull("port20", device="cuda")
+        check(not cntl.failed() and resp.ok and not pc.failed()
+              and torch.equal(got[0], x), "20e: a push to the second port")
+    finally:
+        plain.close()
+    check(nat20(ctla, "rpc_server_remove_port", p2) == 0, "20e remove_port")
+    try:
+        c = native.channel_open("127.0.0.1", p2, connect_timeout_ms=1000)
+        refused = native.channel_call(c, "EchoService", "Echo", b"",
+                                      timeout_ms=1000)[0] != 0
+        native.channel_close(c)
+    except RuntimeError:
+        refused = True
+    check(refused, "20e: the removed port still serves new connections")
+    # a seeded fault spec on this process's writes: faults = failed calls
+    before = native.fault_injected()
+    check(native.fault_configure(FAULT_SPEC_20) == 0, "20e fault spec")
+    ch = native.channel_open("127.0.0.1", pa, connect_timeout_ms=5000)
+    try:
+        fcodes = [native.channel_call(ch, "EchoService", "Echo",
+                                      _echo_bytes("f"), timeout_ms=5000)[0]
+                  for _ in range(FAULT_CALLS_20)]
+    finally:
+        native.fault_configure("")
+        native.channel_close(ch)
+    injected = native.fault_injected() - before
+    failed = sum(1 for c in fcodes if c != 0)
+    check(injected == failed > 0, f"20e: {injected} faults, {failed} failed "
+                                  f"calls {fcodes}")
+    out.update(second_port=p2, faults=injected, failed_calls=failed)
+    print(f"native/20e: limiter constant:{LIMIT_20} under {PRESS_20} calls: "
+          f"codes {hist}, in flight at most {watched['inflight_max']}; a "
+          f"second port took a push onto the card and refused connections "
+          f"once removed; {FAULT_SPEC_20!r} over {FAULT_CALLS_20} calls: "
+          f"{injected} faults injected, {failed} calls failed {tag}")
+    return out
+
+
+def phase_native_clients(tag: str, procs: dict, native19: dict) -> dict:
+    """20: the native runtime's observability and client lanes against two
+    native peers started beside phase 19's."""
+    t_start = time.perf_counter()
+    examples = spawn_examples_20()
+    chans, finals, result = {}, {}, {}
+    try:
+        ports = {k: await_peer(procs[k])[0] for k in ("a", "b")}
+        for k, port in ports.items():
+            chans[k] = Channel()
+            check(chans[k].init(f"127.0.0.1:{port}") == 0, "20 control channel")
+        pa, pb = ports["a"], ports["b"]
+        result["clients"] = native_clients_20(pa, pb, tag)
+        result["bench"] = bench_20(pa, pb, chans["b"],
+                                   native19["serve"]["press"], tag)
+        result["counts"] = counts_20(pa, pb, chans["a"], chans["b"],
+                                     procs.pop("pusher"), tag)
+        result["capture"] = capture_20(pa, chans["a"], tag)
+        result["server"] = server_calls_20(pa, chans["a"], tag)
+        result["examples"] = finish_examples_20(examples, tag)
+        # the graceful stop under a call in flight: draining while it runs
+        ctl19(chans["a"], "watch", s=10)
+        slow = threading.Thread(target=lambda: result.update(
+            stop_call=_acalls_20(pa, [_echo_bytes("s", sleep_us=300000)])),
+            daemon=True)
+        slow.start()
+        time.sleep(0.1)
+        ctl19(chans["a"], "stop")
+        slow.join(30)
+        finals["a"] = stop_peer19(procs.pop("a"))
+        finals["b"] = stop_peer19(procs.pop("b"))
+    finally:
+        for ch in chans.values():
+            ch.close()
+        for p in list(procs.values()) + list(examples.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            for seg in glob.glob(f"{SHM_DIR}/brpc_tpu_torch_lane_{p.pid}_*"):
+                os.unlink(seg)
+    check(finals["a"]["watch"]["draining"] and result["stop_call"] == [0],
+          f"20e: draining {finals['a']['watch']}, the call in flight "
+          f"{result['stop_call']}")
+    for k, st in finals.items():
+        check(st["fabric"]["held_records"] == 0
+              and st["fabric"]["live_leases"] == 0 and st["spans"] == 0
+              and not st["workers"], f"20e: peer {k} left {st}")
+        left = glob.glob(f"{SHM_DIR}/brpc_tpu_torch_lane_{st['pid']}_*")
+        check(not left, f"20e: peer {k} left {left} after its exit")
+    took = time.perf_counter() - t_start
+    print(f"native/20e: server_draining() true during the graceful stop, the "
+          f"call in flight answered 0; no lease, record, arena span, worker "
+          f"or segment left, each peer exited 0; phase took {took:.1f} s "
+          f"{tag}")
+    check(took < NATIVE20_S, f"20: the phase took {took:.1f} s")
+    result["seconds"] = round(took, 1)
+    print("native20 " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5920,7 +6521,15 @@ def main() -> int:
     legacy = phase_legacy(tag, gen, wire_8mib / 1e6, grpc, examples["press"])
     phase_tls(tag, gen, lanes["wire/8MiB-act"], legacy["sequential"])
     phase_rtmp(tag, gen, lanes["wire/8MiB-act"])
-    phase_native(tag, gen, lanes, examples["press"])
+    procs20 = spawn_phase20()  # their CUDA start overlaps 19's build
+    try:
+        native19 = phase_native(tag, gen, lanes, examples["press"])
+        phase_native_clients(tag, procs20, native19)
+    finally:
+        for p in procs20.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
     print("kernels: none ported - brpc_tpu has no Pallas kernel "
           "(no pallas_call in its sources); its device work is XLA-lowered "

@@ -50,6 +50,7 @@ from brpc_tpu.bvar import variable as ref_variable
 from brpc_tpu.rpc import device_transport as ref_dt
 from brpc_tpu.rpc.fake_transfer import FakeTransferServer as RefFake
 from brpc_tpu.rpc.proto import echo_pb2, rpc_meta_pb2
+from brpc_tpu_torch import native as port_native
 from brpc_tpu_torch import bvar, rpc
 from brpc_tpu_torch.builtin import hotspots, profilers
 from brpc_tpu_torch.butil import flags
@@ -86,6 +87,9 @@ def servers():
         # the reference's native sections would build its native runtime
         mp.setattr(ref_native_vars, "native_status_lines", lambda: [])
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         ref_get_task_control()  # the bthread pool's first sizing sticks
         out = {}
         try:

@@ -36,6 +36,7 @@ from brpc_tpu.bthread import get_task_control
 from brpc_tpu.bvar import native_vars as ref_native_vars
 from brpc_tpu.rpc.proto import echo_pb2
 from brpc_tpu import rpc as ref_rpc
+from brpc_tpu_torch import native as port_native
 from brpc_tpu_torch import parallel, rpc
 from brpc_tpu_torch.examples import (
     device_performance,
@@ -60,6 +61,9 @@ def reference_without_native():
         mp.setenv("BRPC_TPU_FABRIC", "0")
         mp.setattr(ref_native_vars, "native_status_lines", lambda: [])
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         mp.chdir(REPO)  # the reference's scripts put "." on sys.path
         yield
 
@@ -319,14 +323,19 @@ def test_tensor_transport_twin(mesh_world, monkeypatch):
 def test_device_performance_twin(monkeypatch):
     """The reference's lines with its native half refused; the lane
     named is the one that moved; the pushers store the reference's bytes
-    bit for bit."""
+    bit for bit. The native half runs in tests/test_torch_native_client.py
+    (a native server per process); here it is refused."""
+    def refuse(*args, **kw):
+        raise port_native.NativeUnavailable("refused by the test")
+
+    monkeypatch.setattr(port_native, "rpc_server_start", refuse)
     code, out = _run_port(device_performance,
                           ["--threads", "2", "--mb", "1", "--iters", "3"])
     assert code == 0
     fields = _hold_to_formats("device_performance", out)
     assert [f[:3] for f in fields[:1]] == [("inproc", "6", "0")]
-    assert out.splitlines()[-1] == ("native bulk lane unavailable: the port "
-                                    "has no native runtime")
+    assert out.splitlines()[-1] == ("native bulk lane unavailable: refused "
+                                    "by the test")
     want = np.random.default_rng(0).standard_normal(
         (1024 * 1024) // 8).astype(np.float64)
     payload = device_performance.make_payload(1)

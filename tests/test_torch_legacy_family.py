@@ -47,6 +47,7 @@ from brpc_tpu.rpc import mongo as ref_mongo
 from brpc_tpu.rpc import nshead_protocol as ref_nshead
 from brpc_tpu.rpc.controller import Controller as RefController
 from brpc_tpu.rpc.proto import echo_pb2, legacy_meta_pb2, mapdemo_pb2
+from brpc_tpu_torch import native as port_native
 from brpc_tpu_torch import mcpack2pb, mcpack2pb_gen, rpc
 from brpc_tpu_torch.examples import nshead_extension
 from brpc_tpu_torch.rpc import errors, esp_protocol
@@ -300,6 +301,9 @@ def servers():
         mp.setenv("BRPC_TPU_FABRIC", "0")
         mp.setattr(ref_native_vars, "native_status_lines", lambda: [])
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         out = {(side, p): _server(pkg, p) for side, pkg in
                (("port", PORT), ("ref", REF)) for p in FAMILY}
         yield out

@@ -128,7 +128,7 @@ class Control(rpc.Service):
             if pkg == "port":
                 out["fabric"] = dt.fabric_state()
                 if native.available():
-                    out["spans"] = native.res_stats()["shm.span"]["live_bytes"]
+                    out["spans"] = native.res_live_bytes("shm.span")
             mount = getattr(srv, "_native_mount", None)
             out["workers"] = (mount.shm_worker_pids()
                               if hasattr(mount, "shm_worker_pids") else [])

@@ -59,6 +59,7 @@ from brpc_tpu.rpc import thrift as ref_thrift
 from brpc_tpu.rpc import thrift_protocol as ref_thrift_protocol
 from brpc_tpu.rpc.controller import Controller as RefController
 from brpc_tpu.rpc.proto import echo_pb2, legacy_meta_pb2
+from brpc_tpu_torch import native as port_native
 from brpc_tpu_torch import mcpack2pb
 from brpc_tpu_torch import rpc
 from brpc_tpu_torch.butil.iobuf import IOBuf
@@ -445,6 +446,9 @@ def servers():
         mp.setenv("BRPC_TPU_FABRIC", "0")
         mp.setattr(ref_native_vars, "native_status_lines", lambda: [])
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         port = rpc.Server(rpc.ServerOptions(
             num_threads=4, device="cpu",
             redis_service=redis.DictRedisService(),

@@ -31,6 +31,7 @@ from brpc_tpu.bvar import native_vars as ref_native_vars
 from brpc_tpu.rpc import rpc_dump as ref_dump
 from brpc_tpu.rpc import tensor_service as ref_ts
 from brpc_tpu.rpc.proto import echo_pb2
+from brpc_tpu_torch import native as port_native
 from brpc_tpu_torch import rpc
 from brpc_tpu_torch.butil import flags, recordio
 from brpc_tpu_torch.rpc import errors, rpc_dump
@@ -99,6 +100,9 @@ def servers():
         # the reference's native pieces would build its native runtime
         mp.setattr(ref_native_vars, "native_status_lines", lambda: [])
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         ref_get_task_control()  # the bthread pool's first sizing sticks
         out = {}
         try:

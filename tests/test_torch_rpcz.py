@@ -28,6 +28,7 @@ from brpc_tpu.bthread import get_task_control as ref_get_task_control
 from brpc_tpu.butil import flags as ref_flags
 from brpc_tpu.bvar import native_vars as ref_native_vars
 from brpc_tpu.rpc.proto import echo_pb2
+from brpc_tpu_torch import native as port_native
 from brpc_tpu_torch import rpc, rpcz
 from brpc_tpu_torch.butil import flags
 from brpc_tpu_torch.rpc.proto import wire
@@ -67,6 +68,9 @@ def cascades():
         # the reference's native pieces would build its native runtime
         mp.setattr(ref_native_vars, "native_status_lines", lambda: [])
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         ref_get_task_control()  # the bthread pool's first sizing sticks
         servers, channels = [], []
         out = {}

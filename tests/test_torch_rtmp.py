@@ -59,6 +59,7 @@ from brpc_tpu.rpc import mpegts as ref_mpegts
 from brpc_tpu.rpc import rtmp_client as ref_rc
 from brpc_tpu.rpc import rtmp_protocol as ref_rp
 from brpc_tpu.rpc.proto import echo_pb2
+from brpc_tpu_torch import native as port_native
 from brpc_tpu_torch import rpc
 from brpc_tpu_torch.examples import rtmp_relay
 from brpc_tpu_torch.rpc import amf, esp_protocol, flv, memcache, mongo, mpegts
@@ -363,6 +364,9 @@ def servers():
         mp.setenv("BRPC_TPU_FABRIC", "0")
         mp.setattr(ref_native_vars, "native_status_lines", lambda: [])
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         port_svc, ref_svc = rp.RtmpService(), ref_rp.RtmpService()
         thrift_svc = thrift.ThriftService()
         thrift_svc.add_method("Echo", lambda body: {0: body.get(1)})
@@ -810,6 +814,9 @@ def test_example_prints_the_references_lines(servers):
             pytest.MonkeyPatch.context() as mp:
         mp.setenv("BRPC_TPU_FABRIC", "0")
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         mp.setattr(sys, "argv", ["examples/rtmp_relay.py"])
         mp.chdir(REPO)
         try:

@@ -368,6 +368,9 @@ def test_stream_setup_and_echo(pair):
         for c in chunks:
             assert s.write(c, timeout_s=WAIT_S) == 0
         assert h.wait_for(10) == chunks  # in order, both ways
+        # the peer's handler appends a write's code after the write, so
+        # the last echo can arrive here before its code is appended
+        _wait(lambda: len(ph.echo_rcs) >= 10, "the peer's echo codes")
         assert ph.got == chunks and ph.echo_rcs == [0] * 10
     finally:
         s.close()

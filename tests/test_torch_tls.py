@@ -36,6 +36,7 @@ from brpc_tpu.bvar import native_vars as ref_native_vars
 from brpc_tpu.rpc import authenticator as ref_auth
 from brpc_tpu.rpc import tensor_service as ref_ts
 from brpc_tpu.rpc.proto import echo_pb2
+from brpc_tpu_torch import native as port_native
 from brpc_tpu_torch import rpc
 from brpc_tpu_torch.rpc import authenticator, errors
 from brpc_tpu_torch.rpc import device_transport as dt
@@ -78,6 +79,9 @@ def servers():
         mp.setenv("BRPC_TPU_FABRIC", "0")
         mp.setattr(ref_native_vars, "native_status_lines", lambda: [])
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         port = rpc.Server(rpc.ServerOptions(
             num_threads=4, device="cpu", ssl_certfile=CERT, ssl_keyfile=KEY,
             auth=authenticator.HmacAuthenticator(SECRET)))

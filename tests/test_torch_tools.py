@@ -7,7 +7,8 @@ has a result to compare, it runs too: rpc_press's ``@file`` bodies reach
 the server in cycle order, ``--qps 40 --duration 1`` makes 30-50 calls,
 and ``--protocol http`` works; a dump recorded by each package replays
 with the same ok/failed/skipped counts through either package's tool,
-and ``--native`` is refused with exit code 2; rpc_view prints the same
+and ``--native`` with nothing to replay is refused with exit code 2
+(``tests/test_torch_native_client.py`` replays through it); rpc_view prints the same
 page as the reference's tool; parallel_http counts the same; a trackme
 ping from each package is counted by the other's server. Threads only.
 """
@@ -31,6 +32,7 @@ from brpc_tpu.rpc import rpc_dump as ref_rpc_dump
 from brpc_tpu.rpc import trackme as ref_trackme
 from brpc_tpu.rpc.proto import echo_pb2
 import brpc_tpu_torch
+from brpc_tpu_torch import native as port_native
 from brpc_tpu_torch import rpc
 from brpc_tpu_torch.butil import flags
 from brpc_tpu_torch.rpc import rpc_dump, trackme
@@ -67,6 +69,9 @@ def servers():
         # the reference's native /status sections would build its runtime
         mp.setattr(ref_native_vars, "native_status_lines", lambda: [])
         mp.setattr(ref_native, "available", lambda: False)
+        # and the port's pages show no native section, whether or not
+        # an earlier test of this process loaded the port's library
+        mp.setattr(port_native, "is_loaded", lambda: False)
         try:
             for pkg, mod, msgs, opts in (
                     ("ref", ref_rpc, echo_pb2, ref_rpc.ServerOptions()),
@@ -231,10 +236,12 @@ def test_rpc_replay_same_counts_for_either_packages_dump_and_tool(
 
 
 def test_rpc_replay_native_is_refused(tmp_path, capsys):
+    """``--native`` with a capture that holds nothing to replay is refused
+    with exit code 2 and the reason."""
     code = rpc_replay.main(["--dir", str(tmp_path), "--server",
                             "127.0.0.1:1", "--native"])
     assert code == 2
-    assert "native runtime" in capsys.readouterr().err
+    assert "no replayable records" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("pkg", ["ref", "port"])
